@@ -1,0 +1,41 @@
+"""Deterministic segment sum.
+
+Counterpart of `semantic_meshes/ops.py::segment_sum`. The JAX package
+picks one of three TPU routes (one-hot MXU matmul, f32 scatter, int16-limb
+`exact16` scatter), each a workaround for the TPU's slow scatter. On the
+GPU one formulation serves every segment count: a stable sort of the rows
+by segment, then a segmented sum over the sorted rows
+(`torch.segment_reduce`, which adds each segment's rows in order). No
+floating-point atomics are involved, so the same inputs give a
+bit-identical result from run to run, which is the fusion contract
+(`semantic_meshes/fusion.py`: race-free, deterministic reductions).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def segment_sum(data, idx, num_segments):
+    """Sum rows of `data` (N, D) f32 (or (N,)) into `num_segments` segments
+    by `idx` (N,) integer; rows with an index outside [0, num_segments)
+    are dropped. Returns (num_segments, D) (or (num_segments,)).
+
+    Dropped rows sort after every segment and lie past the last offset,
+    so the segmented sum never reads them.
+    """
+    squeeze = data.ndim == 1
+    if squeeze:
+        data = data[:, None]
+    idx = idx.to(torch.int64)
+    P = int(num_segments)
+    valid = (idx >= 0) & (idx < P)
+    key = torch.where(valid, idx, P)
+    order = torch.sort(key, stable=True).indices
+    counts = torch.bincount(key, minlength=P + 1)[:P]
+    offsets = torch.zeros(P + 1, dtype=torch.int64, device=data.device)
+    torch.cumsum(counts, dim=0, out=offsets[1:])
+    out = torch.segment_reduce(
+        data[order], "sum", offsets=offsets, axis=0, unsafe=True
+    )
+    return out[:, 0] if squeeze else out

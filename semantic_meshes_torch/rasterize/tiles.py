@@ -1,0 +1,174 @@
+"""Triangle setup and screen-tile binning, in torch.
+
+Counterpart of the setup and binning half of
+`semantic_meshes/rasterize/xla.py` (`_setup_from_projected`,
+`setup_from_face_vertices`, `_triangle_setup`, `_make_setup`,
+`_bin_triangles`). Each op is written in the JAX code's order, so the
+per-triangle coefficients round the same way on the CPU and the card.
+
+Determinism: per tile, candidates are the tile's overlapping triangle ids
+in ascending order, so the z-resolve (rasterize/tile_kernel.py) keeps the
+lowest id on a depth tie. Near-plane handling culls any triangle with a
+vertex at z <= Z_NEAR; clipping is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import geometry
+
+Z_NEAR = 1e-6
+
+# Tile shape of the z-resolve: one CUDA block per (32, 128) tile
+TILE_H = 32
+TILE_W = 128
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def project_vertices(vertices, rotation, translation, focal_lengths,
+                     principal_point):
+    """World-space vertices -> (pixel xy (V, 2), camera z (V,))."""
+    cam = geometry.rigid_transform(rotation, translation, vertices)
+    pix = geometry.pinhole_project(focal_lengths, principal_point, cam)
+    return pix, cam[..., 2]
+
+
+def _triangle_setup(pix, z_cam, faces):
+    """Per-triangle affine coefficients (gather path: pix/z per vertex)."""
+    return _setup_from_projected(pix[faces], z_cam[faces])
+
+
+def setup_from_face_vertices(face_vertices, rotation, translation,
+                             focal_lengths, principal_point):
+    """Gather-free setup from pre-expanded (T, 3, 3) face-vertex positions
+    (the renderer expands the faces once, so per view there is no
+    vertex->face gather)."""
+    cam = geometry.rigid_transform(rotation, translation, face_vertices)
+    pix = geometry.pinhole_project(focal_lengths, principal_point, cam)
+    return _setup_from_projected(pix, cam[..., 2])
+
+
+def _setup_from_projected(p, z):
+    """Core setup from projected vertices p (T, 3, 2) and camera z (T, 3).
+
+    Returns dict of (T,) tensors: edge coeffs (a_i, b_i, c_i for i in 0..2
+    with w_i(x, y) = a_i x + b_i y + c_i), denom (signed 2*area), inv-z
+    plane coeffs, bbox, and validity.
+    """
+    px, py = p[..., 0], p[..., 1]
+
+    def edge(i, j):
+        # w = signed_area2(p_i, p_j, pixel) = a x + b y + c
+        ax, ay = px[:, i], py[:, i]
+        bx, by = px[:, j], py[:, j]
+        a = -(by - ay)
+        b = bx - ax
+        c = (by - ay) * ax - (bx - ax) * ay
+        return a, b, c
+
+    a0, b0, c0 = edge(1, 2)
+    a1, b1, c1 = edge(2, 0)
+    a2, b2, c2 = edge(0, 1)
+    denom = a0 * px[:, 0] + b0 * py[:, 0] + c0  # w0 at p0 == 2*signed area
+    denom = denom + 0.0  # -0.0 -> +0.0
+
+    safe_denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    inv_z_v = torch.reciprocal(torch.clamp(z, min=Z_NEAR))
+    iz0, iz1, iz2 = inv_z_v[:, 0], inv_z_v[:, 1], inv_z_v[:, 2]
+    az = (a0 * iz0 + a1 * iz1 + a2 * iz2) / safe_denom
+    bz = (b0 * iz0 + b1 * iz1 + b2 * iz2) / safe_denom
+    cz = (c0 * iz0 + c1 * iz1 + c2 * iz2) / safe_denom
+
+    valid = torch.all(z > Z_NEAR, dim=-1) & (denom != 0)
+    return dict(
+        a=torch.stack([a0, a1, a2], -1),
+        b=torch.stack([b0, b1, b2], -1),
+        c=torch.stack([c0, c1, c2], -1),
+        denom=denom,
+        az=az,
+        bz=bz,
+        cz=cz,
+        valid=valid,
+        xmin=px.amin(-1),
+        xmax=px.amax(-1),
+        ymin=py.amin(-1),
+        ymax=py.amax(-1),
+    )
+
+
+def _make_setup(vertices, faces, rotation, translation, focal_lengths,
+                principal_point, face_vertices):
+    """Setup dispatch: gather-free when pre-expanded face vertices exist.
+    All inputs are f32 tensors on one device."""
+    if face_vertices is not None:
+        return setup_from_face_vertices(
+            face_vertices, rotation, translation, focal_lengths,
+            principal_point,
+        )
+    pix, z_cam = project_vertices(
+        vertices, rotation, translation, focal_lengths, principal_point
+    )
+    return _triangle_setup(pix, z_cam, faces)
+
+
+def _tile_range(lo, hi, size, n):
+    """Inclusive tile range [floor(lo/size), floor(hi/size)] clipped to
+    [0, n-1]. The float is clamped before the int cast, so a coordinate far
+    off screen saturates (as XLA's convert does) instead of wrapping."""
+    def tile(v):
+        return torch.clamp(torch.floor(v / size), -1.0, float(n)).to(
+            torch.int32
+        ).clamp(0, n - 1)
+
+    return tile(lo), tile(hi)
+
+
+def _bin_triangles(setup, height, width, max_tris_per_tile, y_offset):
+    """Build per-tile candidate triangle lists (static shapes).
+
+    Returns (cand (B, N) int32 triangle ids ascending, padded with T;
+    counts (B,) int32 candidates per tile, capped at N; overflow int32
+    total dropped (tile, tri) pairs). B = tiles_y * tiles_x. `y_offset`
+    shifts the screen window vertically (a row band of a taller image).
+    """
+    T = setup["denom"].shape[0]
+    nby = _cdiv(height, TILE_H)
+    nbx = _cdiv(width, TILE_W)
+    device = setup["denom"].device
+
+    ymin = setup["ymin"] - y_offset
+    ymax = setup["ymax"] - y_offset
+    bx0, bx1 = _tile_range(setup["xmin"], setup["xmax"], TILE_W, nbx)
+    by0, by1 = _tile_range(ymin, ymax, TILE_H, nby)
+    onscreen = (
+        (setup["xmax"] >= 0)
+        & (setup["xmin"] < width)
+        & (ymax >= 0)
+        & (ymin < height)
+    )
+    valid = setup["valid"] & onscreen
+
+    tile_y = torch.arange(nby, dtype=torch.int32, device=device)
+    tile_x = torch.arange(nbx, dtype=torch.int32, device=device)
+    # overlap: (nby, nbx, T) -> (B, T)
+    oy = (by0[None, :] <= tile_y[:, None]) & (tile_y[:, None] <= by1[None, :])
+    ox = (bx0[None, :] <= tile_x[:, None]) & (tile_x[:, None] <= bx1[None, :])
+    overlap = (oy[:, None, :] & ox[None, :, :] & valid[None, None, :]).reshape(
+        nby * nbx, T
+    )
+
+    tri_ids = torch.arange(T, dtype=torch.int32, device=device)
+    keys = torch.where(overlap, tri_ids[None, :], T)
+    n = min(max_tris_per_tile, T)
+    # the N smallest keys per tile, ascending: VALUES, never the indices
+    # (ties among the padding keys T make the indices arbitrary)
+    cand = torch.topk(keys, n, dim=1, largest=False, sorted=True).values
+    counts = overlap.sum(dim=1)
+    overflow = torch.clamp(counts - n, min=0).sum().to(torch.int32)
+    return cand.to(torch.int32), torch.clamp(counts, max=n).to(
+        torch.int32
+    ), overflow

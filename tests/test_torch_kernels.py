@@ -1,0 +1,98 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card. Every test here is marked `gpu` and decides inside itself whether a
+CUDA card is present; without one it skips. Run on the card with
+
+    python -m pytest -m gpu tests/test_torch_kernels.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from semantic_meshes_torch import distributed, fusion, ops, testing
+from semantic_meshes_torch.rasterize import tile_kernel
+from semantic_meshes_torch.data import Camera, stack_cameras
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (sm_90a): the kernels have no CPU "
+                    "mode; their plain versions are tested on the CPU")
+    return torch.device("cuda", 0)
+
+
+def _inputs(vertices, faces, cam, device, cap=256, y_offset=0.0,
+            height=None):
+    args, _ = tile_kernel.resolve_inputs(
+        vertices, faces, cam.rotation, cam.translation, cam.focal_lengths,
+        cam.principal_point, y_offset, height=height or cam.resolution[1],
+        width=cam.resolution[0], max_tris_per_tile=cap, device=device)
+    return args
+
+
+def _scenes():
+    v, f = testing.make_cube(5)
+    for cam in testing.make_ring_cameras(3, 200, 72):  # ragged tiles
+        yield v, f, cam, {}
+    cam = testing.make_ring_cameras(1, 128, 96)[0]
+    yield v, f, cam, dict(y_offset=32.0, height=32)  # a row band
+    rng = np.random.default_rng(9)
+    rv = rng.normal(size=(80, 3)).astype(np.float32) * 1.5
+    rv[:, 2] += 5
+    rf = rng.integers(0, 80, size=(60, 3)).astype(np.int32)
+    rcam = Camera(np.eye(3), np.zeros(3), (256, 64), [50.0, 50.0],
+                  [128.0, 32.0])
+    yield rv, rf, rcam, {}
+    yield rv, rf, rcam, dict(cap=3)  # overflowing tiles
+
+
+@pytest.mark.parametrize("k", range(6))
+def test_raster_tile_matches_plain(cuda, k):
+    v, f, cam, kw = list(_scenes())[k]
+    args = _inputs(v, f, cam, cuda, **kw)
+    before = tile_kernel.launches
+    zk, ik = tile_kernel.resolve_tiles(*args)
+    torch.cuda.synchronize()
+    assert tile_kernel.launches == before + 1
+    zp, ip = tile_kernel.resolve_tiles_plain(*args)
+    assert torch.equal(ik, ip)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    # and the CPU run of the plain version agrees with the card's
+    zc, ic = tile_kernel.resolve_tiles_plain(*(a.cpu() if torch.is_tensor(a)
+                                               else a for a in args))
+    assert torch.equal(ic, ik.cpu())
+    assert torch.equal(zc.view(torch.int32), zk.cpu().view(torch.int32))
+
+
+def test_segment_sum_is_deterministic_on_the_card(cuda):
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(rng.normal(size=(200000, 20)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(-10, 3000, size=200000))
+    a = ops.segment_sum(data.to(cuda), idx.to(cuda), 3000)
+    b = ops.segment_sum(data.to(cuda), idx.to(cuda), 3000)
+    assert torch.equal(a, b)
+    np.testing.assert_allclose(a.cpu().numpy(),
+                               ops.segment_sum(data, idx, 3000).numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_batched_pipeline_card_equals_cpu(cuda):
+    v, f = testing.make_cube(6)
+    cams = testing.make_ring_cameras(3, 256, 192)
+    rot, trans, fl, pp = stack_cameras(cams)
+    probs = np.stack([testing.random_probs(np.random.default_rng(i), 192,
+                                           256, 7) for i in range(3)])
+    kw = dict(num_primitives=len(f), aggregator="summax", height=192,
+              width=256)
+    acc_g, ov_g = distributed.fuse_views(v, f, rot, trans, fl, pp, probs,
+                                         0.5, device=cuda, **kw)
+    acc_c, ov_c = distributed.fuse_views(v, f, rot, trans, fl, pp, probs,
+                                         0.5, device="cpu", **kw)
+    assert int(ov_g) == int(ov_c) == 0
+    np.testing.assert_allclose(acc_g.cpu().numpy(), acc_c.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    agg = fusion.MeshAggregator(len(f), 7, "summax", device=cuda)
+    assert agg.device.type == "cuda"
