@@ -1,6 +1,6 @@
-"""Build and load the port's CUDA kernel.
+"""Build and load the port's CUDA kernels.
 
-`csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library with
+Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library with
 a plain C interface, `build/torch_kernels/lib<name>-<hash>.so` at the root
 of the checkout, the first time it is needed; the hash covers the source
 and the flags, so an edited source rebuilds. nvcc's output (with the
@@ -46,23 +46,33 @@ def library_path(name):
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build(name):
-    """Compile csrc/<name>.cu unless it is built already. Returns the
-    library's path."""
-    out = library_path(name)
-    if out.exists():
-        return out
+def build(*names):
+    """Compile csrc/<name>.cu for each name not built yet: one nvcc process
+    per source, all started together. Returns the libraries' paths."""
+    outs = [library_path(name) for name in names]
+    todo = [(name, out) for name, out in zip(names, outs) if not out.exists()]
+    if not todo:
+        return outs
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    out.with_suffix(".log").write_text(proc.stdout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"CUDA kernel build of {name} failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return out
+    running = []
+    for name, out in todo:
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        running.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for name, out, tmp, proc in running:
+        log = proc.communicate()[0]
+        out.with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    return outs
 
 
 def build_log(name):
@@ -75,5 +85,5 @@ def build_log(name):
 def load(name):
     """The ctypes library of kernel `name`, built first if needed."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
+        _loaded[name] = ctypes.CDLL(str(build(name)[0]))
     return _loaded[name]

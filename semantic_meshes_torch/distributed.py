@@ -1,13 +1,12 @@
 """Batched single-device render+fuse pipeline.
 
 Counterpart of the single-device part of `semantic_meshes/distributed.py`:
-`render_and_accumulate`, `fuse_views`, `FusePlan`, `plan_fuse` and
-`fuse_views_planned`. The JAX package scans the views inside one compiled
-program; here `fuse_views` is a Python loop over views whose every step
-stays on the device (no host sync), with the (P, C) accumulator in device
-memory. Multi-device sharding, lens distortion (`resample_grid`), the
-dense plan's probes and its face permutation are not ported yet (see
-ROADMAP).
+`render_and_accumulate`, `fuse_views`, `FusePlan`, `plan_fuse`,
+`fuse_views_planned` and `fuse_views_split`. The JAX package scans the
+views inside one compiled program; here `fuse_views` is a Python loop over
+views whose every step stays on the device (no host sync), with the (P, C)
+accumulator in device memory. Multi-device sharding and lens distortion
+(`resample_grid`, `lens_shared`) are not ported yet (see ROADMAP).
 
 Layout: probs here are (N, H, W, C), not the public API's (W, H).
 """
@@ -24,19 +23,23 @@ from .data import resolve_device
 def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
                           images_equal_weight, *, num_primitives, aggregator,
                           height, width, max_tris_per_tile=256,
-                          face_vertices=None, device="cuda"):
+                          face_vertices=None, dense_e_cap=None, tri_ids=None,
+                          backend=None, device="cuda"):
     """One fused render+aggregate step on one view.
 
     camera_arrays: (rotation, translation, focal_lengths, principal_point).
-    probs: (H, W, C); weights: optional (H, W). Returns ((P, C) fusion
-    delta, overflow int32 tensor): overflow counts candidate pairs the
-    rasterizer dropped under its per-tile cap this view.
+    probs: (H, W, C); weights: optional (H, W). dense_e_cap: the dense
+    rasterizer's probed budget (FusePlan); tri_ids: (T,) ids to emit per
+    face row (a split plan's original face ids). Returns ((P, C) fusion
+    delta, overflow int32 tensor): overflow counts the candidate pairs and
+    micro rows the rasterizer dropped under its budgets this view.
     """
     rot, trans, fl, pp = camera_arrays
     tri, _, overflow = rast.rasterize(
         vertices, faces, rot, trans, fl, pp,
         height=height, width=width, max_tris_per_tile=max_tris_per_tile,
-        face_vertices=face_vertices, device=device,
+        face_vertices=face_vertices, dense_e_cap=dense_e_cap,
+        tri_ids=tri_ids, backend=backend, device=device,
     )
     probs = fusion._as_f32(probs, device)
     if weights is not None:
@@ -49,9 +52,10 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
 
 
 def fuse_views(vertices, faces, rotations, translations, focal_lengths,
-               principal_points, probs, images_equal_weight, weights=None, *,
-               num_primitives, aggregator, height, width,
-               max_tris_per_tile=256, predict_fn=None, device="cuda"):
+               principal_points, probs, images_equal_weight, weights=None,
+               prim_remap=None, *, num_primitives, aggregator, height, width,
+               max_tris_per_tile=256, dense_e_cap=None, backend=None,
+               predict_fn=None, device="cuda"):
     """Render and fuse N views into one accumulator.
 
     rotations (N,3,3), translations (N,3), focal_lengths/principal_points
@@ -59,8 +63,12 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     by view in place), optional per-pixel weights (N,H,W). Returns
     (accumulator (P, C), overflow int32 tensor): read the accumulator out
     with fusion._get / MeshAggregator.state; overflow must be 0 in a
-    correctly budgeted run.
+    correctly budgeted run. No step syncs with the host.
 
+    prim_remap: optional (T,) int32 primitive id to emit per face row, how
+    a split plan returns its accumulator in original face order (the dense
+    rasterizer writes the ids into its tables, see rasterize.rasterize).
+    dense_e_cap / backend: the dense budget and the backend (plan_fuse).
     predict_fn: optional per-view hook `(H, W, ...) -> (H, W, C)` probs;
     `probs` then holds its inputs.
     """
@@ -68,6 +76,9 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     vertices = fusion._as_f32(vertices, device)
     faces = torch.as_tensor(faces, dtype=torch.int64, device=device)
     face_vertices = vertices[faces]  # one gather for all views
+    if prim_remap is not None:
+        prim_remap = torch.as_tensor(prim_remap, dtype=torch.int32,
+                                     device=device)
     acc = None
     overflow = torch.zeros((), dtype=torch.int32, device=device)
     for i in range(len(rotations)):
@@ -81,7 +92,8 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
             pr, None if weights is None else weights[i], images_equal_weight,
             num_primitives=num_primitives, aggregator=aggregator,
             height=height, width=width, max_tris_per_tile=max_tris_per_tile,
-            face_vertices=face_vertices, device=device,
+            face_vertices=face_vertices, dense_e_cap=dense_e_cap,
+            tri_ids=prim_remap, backend=backend, device=device,
         )
         acc = delta if acc is None else acc + delta
         overflow = overflow + ov
@@ -91,36 +103,115 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
 
 
 class FusePlan:
-    """Per-scene fusion plan from `plan_fuse`: the faces to rasterize. The
-    tile rasterizer needs no probed budget and no face permutation, so its
-    plan holds the faces (on the device) only."""
+    """Per-scene fusion plan from `plan_fuse`: the (possibly uni-permuted)
+    faces to rasterize (on the device), the dense budget tuple (None for
+    the tile rasterizer), and, when the plan split, `remap`, the (T,) map
+    from the rasterizer's row ids to original face ids (faces[remap] is
+    the permuted order). The remap rides the dense rasterizer's tables, so
+    the accumulator lands in original face order and depth ties break by
+    the original id, as in the unpermuted run. `lens_shared` is always
+    False: lens distortion is not ported."""
 
-    __slots__ = ("faces",)
+    __slots__ = ("faces", "dense_e_cap", "remap", "micro_max", "split_k",
+                 "lens_shared")
 
-    def __init__(self, faces):
+    def __init__(self, faces, dense_e_cap, remap=None, micro_max=None,
+                 split_k=0, lens_shared=False):
         self.faces = faces
+        self.dense_e_cap = dense_e_cap
+        self.remap = remap  # (T,) int32 permuted id -> original id
+        self.micro_max = micro_max  # routing threshold probed (or None)
+        self.split_k = split_k  # uni-prefix length (0 = no split)
+        self.lens_shared = lens_shared
 
 
 def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
               principal_points, *, height, width, backend=None,
-              device="cuda"):
-    """Build the FusePlan every batched fusion shares. For the tile
-    rasterizer this is a no-op plan (no probes, no budget); a mesh that
-    needs the dense rasterizer raises NotImplementedError."""
-    faces = torch.as_tensor(faces, dtype=torch.int64,
-                            device=resolve_device(device))
-    rast.check_backend(int(faces.shape[0]), backend)
-    return FusePlan(faces)
+              micro_max=None, allow_split=True, route=None, device="cuda"):
+    """Probe a scene once and build the FusePlan every batched fusion
+    shares. For the tile rasterizer this is a no-op plan (no probes, no
+    budget). For the dense rasterizer: the routing pick (micro_max=None:
+    dense.pick_route on the max routing curve over the views, with
+    `route` overriding its cost coefficients) or the stats at a fixed
+    micro_max, then the choice between the uni-slot prefix and micro
+    compaction (dense.split_wins; the two are mutually exclusive).
+    allow_split=False always plans compaction. A few host syncs in all,
+    never one per view."""
+    device = resolve_device(device)
+    faces_t = torch.as_tensor(faces, dtype=torch.int64, device=device)
+    n_rows = int(faces_t.shape[0])
+    if not rast.uses_dense(backend, n_rows):
+        return FusePlan(faces_t, None)
+    dense = rast.dense
+    face_vertices = fusion._as_f32(vertices, device)[faces_t]
+    cams = (rotations, translations, focal_lengths, principal_points)
+    kw = dict(face_vertices=face_vertices, height=height, width=width,
+              device=device)
+    if micro_max is None:
+        curve = dense.routing_stats_batch(None, None, *cams, **kw)
+        pairs, micro, micro_max = dense.pick_route(curve.tolist(), n_rows,
+                                                   **(route or {}))
+    else:
+        pairs, micro = dense.candidate_stats_batch(
+            None, None, *cams, micro_max=micro_max, **kw).tolist()
+
+    if allow_split:
+        perm, k = dense.uni_order(None, None, *cams, **kw)
+        if k and dense.split_wins(k, n_rows, micro, micro_max):
+            perm_t = torch.as_tensor(perm, device=device)
+            pairs_s = int(dense.candidate_stats_batch(
+                None, None, *cams, micro_split=k, micro_max=micro_max,
+                **dict(kw, face_vertices=face_vertices[perm_t]))[0])
+            return FusePlan(
+                faces_t[perm_t],
+                (dense.BUDGET_MARGIN * pairs_s, 0, micro_max, k),
+                remap=perm_t.to(torch.int32), micro_max=micro_max,
+                split_k=k,
+            )
+    return FusePlan(
+        faces_t,
+        (dense.BUDGET_MARGIN * pairs, dense.BUDGET_MARGIN * micro,
+         micro_max),
+        micro_max=micro_max,
+    )
 
 
 def fuse_views_planned(plan, vertices, rotations, translations,
                        focal_lengths, principal_points, probs,
                        images_equal_weight, weights=None, *,
                        num_primitives, aggregator, height, width, **kwargs):
-    """fuse_views under a FusePlan. Equals fuse_views(plan.faces)."""
+    """fuse_views under a FusePlan (no probes). The accumulator comes out
+    in original face order even when the plan split. Equals
+    fuse_views(faces) on the plan's backend."""
+    if plan.dense_e_cap is not None:
+        kwargs.setdefault("backend", "dense")
     return fuse_views(
         vertices, plan.faces, rotations, translations, focal_lengths,
         principal_points, probs, images_equal_weight, weights,
-        num_primitives=num_primitives,
-        aggregator=aggregator, height=height, width=width, **kwargs,
+        prim_remap=plan.remap, num_primitives=num_primitives,
+        aggregator=aggregator, height=height, width=width,
+        dense_e_cap=plan.dense_e_cap, **kwargs,
+    )
+
+
+def fuse_views_split(vertices, faces, rotations, translations,
+                     focal_lengths, principal_points, probs,
+                     images_equal_weight, weights=None, *, num_primitives,
+                     aggregator, height, width, backend=None, micro_max=None,
+                     route=None, device="cuda", **kwargs):
+    """plan_fuse + fuse_views_planned in one call: the dense path's
+    uni-slot prefix where dense.split_wins says it beats micro compaction,
+    right-sized compaction budgets otherwise. Equals fuse_views."""
+    plan = plan_fuse(
+        vertices, faces, rotations, translations, focal_lengths,
+        principal_points, height=height, width=width, backend=backend,
+        micro_max=micro_max, route=route, device=device,
+    )
+    if backend is not None:
+        kwargs["backend"] = backend
+    return fuse_views_planned(
+        plan, vertices, rotations, translations, focal_lengths,
+        principal_points, probs, images_equal_weight, weights,
+        num_primitives=num_primitives, aggregator=aggregator,
+        height=height, width=width, device=device, **kwargs,
     )

@@ -1,43 +1,93 @@
 """Rasterizer dispatch.
 
-Counterpart of `semantic_meshes/rasterize/__init__.py`. One backend is
-ported so far, the tile rasterizer (`tiles` setup and binning +
-`tile_kernel` z-resolve: the CUDA kernel for CUDA tensors, its plain
-PyTorch version for CPU tensors). Meshes at or above DENSE_THRESHOLD faces
-belong to the dense rasterizer, which is not ported yet: they raise unless
-the caller asks for the tile backend explicitly (`backend="tile"`; its
-per-tile candidate cap then counts every dropped pair in `overflow`).
+Counterpart of `semantic_meshes/rasterize/__init__.py`. Two backends:
+
+- `tile`: setup and (32, 128)-tile binning (`tiles`) + the z-resolve of
+  `tile_kernel`, for meshes under DENSE_THRESHOLD faces;
+- `dense`: sort binning, micro fragments and the streaming z-resolve of
+  `dense` / `dense_kernel`, for meshes of DENSE_THRESHOLD faces or more.
+
+Each z-resolve is a CUDA kernel for CUDA tensors and its plain PyTorch
+version for CPU tensors. `backend="tile"|"dense"` forces a backend.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import tile_kernel, tiles  # noqa: F401
+from . import dense, dense_kernel, tile_kernel, tiles  # noqa: F401
 
 DENSE_THRESHOLD = 16384
+BACKENDS = ("tile", "dense")
 Z_NEAR = tiles.Z_NEAR
 
 
 def check_backend(num_tris, backend=None):
-    """Raise unless the tile backend may rasterize `num_tris` faces."""
-    if backend not in (None, "tile"):
+    """The backend that rasterizes `num_tris` faces: `backend` if given,
+    else dense at DENSE_THRESHOLD faces or more."""
+    if backend is None:
+        return "dense" if num_tris >= DENSE_THRESHOLD else "tile"
+    if backend not in BACKENDS:
         raise ValueError(f"unknown rasterizer backend {backend!r}")
-    if backend is None and num_tris >= DENSE_THRESHOLD:
-        raise NotImplementedError(
-            "dense rasterizer: not ported yet, see ROADMAP"
-        )
+    return backend
 
 
-def rasterize(vertices, faces, *args, backend=None, tri_ids=None, **kwargs):
+def uses_dense(backend=None, num_tris=None):
+    """True when dispatch picks the dense backend (the renderers then probe
+    its budgets once per resolution)."""
+    return check_backend(num_tris or 0, backend) == "dense"
+
+
+def dense_kwargs(dense_e_cap):
+    """dense.rasterize keywords of a probed budget: an int is the pair
+    budget; a (pairs, micro) tuple also sizes the micro path; a third
+    element is the routing threshold the budgets were probed at; a fourth
+    the uni-slot prefix length (micro_split, with faces permuted uni-first;
+    no micro budget then)."""
+    if dense_e_cap is None:
+        return {}
+    if not isinstance(dense_e_cap, tuple):
+        return {"e_cap_rows": int(dense_e_cap)}
+    kw = {"e_cap_rows": int(dense_e_cap[0])}
+    if len(dense_e_cap) > 3 and dense_e_cap[3] is not None:
+        kw["micro_split"] = int(dense_e_cap[3])
+    else:
+        kw["micro_cap_rows"] = int(dense_e_cap[1])
+    if len(dense_e_cap) > 2 and dense_e_cap[2] is not None:
+        kw["micro_max"] = int(dense_e_cap[2])
+    return kw
+
+
+def rasterize(vertices, faces, *args, backend=None, tri_ids=None,
+              dense_e_cap=None, **kwargs):
     """(ids (H, W) int32 with -1 empty, depth (H, W) f32, overflow) — see
-    tile_kernel.rasterize. tri_ids: optional (T,) ids to report per face
-    row, remapped per pixel after the z-resolve (as the JAX package's
-    non-dense backends do, so depth ties break by face row)."""
-    check_backend(faces.shape[0], backend)
+    tile_kernel.rasterize and dense.rasterize.
+
+    tri_ids: optional (T,) ids to report per face row. The dense backend
+    writes them into its candidate table and fragment keys, so depth ties
+    break by these ids; the tile backend remaps each pixel after its
+    z-resolve, as the JAX package's non-dense backends do, so ties break
+    by face row there. dense_e_cap: a probed dense budget (dense_kwargs);
+    ignored by the tile backend."""
+    if check_backend(faces.shape[0], backend) == "dense":
+        kwargs.pop("max_tris_per_tile", None)
+        return dense.rasterize(vertices, faces, *args, tri_ids=tri_ids,
+                               **dense_kwargs(dense_e_cap), **kwargs)
     idx, z, overflow = tile_kernel.rasterize(vertices, faces, *args, **kwargs)
     if tri_ids is not None:
         tri_ids = torch.as_tensor(tri_ids, dtype=torch.int32,
                                   device=idx.device)
         idx = torch.where(idx >= 0, tri_ids[idx.clamp(min=0).long()], idx)
     return idx, z, overflow
+
+
+def dense_candidate_count(*args, **kwargs):
+    return dense.candidate_count(*args, **kwargs)
+
+
+def dense_candidate_stats(*args, **kwargs):
+    return dense.candidate_stats(*args, **kwargs)
+
+
+def dense_routing_stats(*args, **kwargs):
+    return dense.routing_stats(*args, **kwargs)

@@ -22,7 +22,6 @@ import ctypes
 
 import torch
 
-from ..data import resolve_device
 from . import tiles
 
 TILE_H = tiles.TILE_H
@@ -55,13 +54,18 @@ def _kernel():
     return fn
 
 
-def candidate_table(setup):
+def candidate_table(setup, tri_ids=None):
     """(T+1, 16) f32 table of per-triangle resolve parameters.
 
     Invalid triangles (sign 0) and the sentinel row T get c_i = -1, so the
     pre-signed inside test w_i = a_i*px + b_i*py + c_i >= 0 always fails.
     Unlike the TPU table, the id lane carries no 2^23 bias: that only
     worked around the TPU's flush-to-zero of denormal f32 bit patterns.
+
+    tri_ids: optional (T,) int32 ids to emit for each setup row (default:
+    the row index), as `_gather_candidate_tables` takes them: a permuted
+    face order then renders original face ids, with depth ties broken by
+    the original id.
     """
     denom = setup["denom"]
     T = denom.shape[0]
@@ -75,7 +79,9 @@ def candidate_table(setup):
         cols.append(torch.where(bad, zero, setup["a"][:, e] * sgn))
         cols.append(torch.where(bad, zero, setup["b"][:, e] * sgn))
         cols.append(torch.where(bad, minus_one, setup["c"][:, e] * sgn))
-    cols.append(torch.arange(T, dtype=torch.int32, device=device)
+    if tri_ids is None:
+        tri_ids = torch.arange(T, dtype=torch.int32, device=device)
+    cols.append(torch.as_tensor(tri_ids, dtype=torch.int32, device=device)
                 .view(torch.float32))
     cols += [setup["az"], setup["bz"], setup["cz"]]
     table = torch.zeros((T + 1, N_LANES), dtype=torch.float32, device=device)
@@ -84,35 +90,39 @@ def candidate_table(setup):
     return table
 
 
-def _pixel_centres(nby, nbx, y_offset, device):
-    """(B, 32, 128) pixel-centre coordinates, in the kernel's op order:
-    py = ((row + tile_y*32) + 0.5) + y_offset, px = (col + tile_x*128) + 0.5."""
+def _pixel_centres(nby, nbx, y_offset, device, tile_h=TILE_H):
+    """(B, tile_h, 128) pixel-centre coordinates, in the kernels' op order:
+    py = ((row + tile_y*tile_h) + 0.5) + y_offset,
+    px = (col + tile_x*128) + 0.5."""
     b = torch.arange(nby * nbx, device=device)
-    base_y = ((b // nbx) * TILE_H).to(torch.float32)
+    base_y = ((b // nbx) * tile_h).to(torch.float32)
     base_x = ((b % nbx) * TILE_W).to(torch.float32)
-    yy = torch.arange(TILE_H, dtype=torch.float32, device=device)
+    yy = torch.arange(tile_h, dtype=torch.float32, device=device)
     xx = torch.arange(TILE_W, dtype=torch.float32, device=device)
     py = (yy[None, :, None] + base_y[:, None, None]) + 0.5 + y_offset
     px = (xx[None, None, :] + base_x[:, None, None]) + 0.5
     return px, py
 
 
-def resolve_tiles_plain(table, cand, counts, y_offset, nbx, height, width):
+def resolve_tiles_plain(table, cand, counts, y_offset, nbx, height, width,
+                        tile_h=TILE_H):
     """Plain PyTorch z-resolve: same function as the CUDA kernel.
 
     table (T+1, 16) f32, cand (B, N) int32, counts (B,) int32 ->
     (depth (height, width) f32, ids (height, width) int32). Every tile is
     resolved at once, one candidate slot per step; each edge and plane form
     is evaluated as (p0*px + p1*py) + p2, the kernel's rounding order.
+    tile_h: tile height (32 here; the dense rasterizer's 16-row tiles
+    reuse this loop).
     """
     B, N = cand.shape
     nby = B // nbx
-    px, py = _pixel_centres(nby, nbx, y_offset, table.device)
+    px, py = _pixel_centres(nby, nbx, y_offset, table.device, tile_h)
     params = table[cand.long()]  # (B, N, 16)
     ids = params[..., 9].contiguous().view(torch.int32)
-    invz = torch.zeros((B, TILE_H, TILE_W), dtype=torch.float32,
+    invz = torch.zeros((B, tile_h, TILE_W), dtype=torch.float32,
                        device=table.device)
-    idx = torch.full((B, TILE_H, TILE_W), -1, dtype=torch.int32,
+    idx = torch.full((B, tile_h, TILE_W), -1, dtype=torch.int32,
                      device=table.device)
     # slots past a tile's count hold the sentinel; slots past every tile's
     # count need no step at all
@@ -131,11 +141,11 @@ def resolve_tiles_plain(table, cand, counts, y_offset, nbx, height, width):
     z = torch.where(invz > 0.0, torch.reciprocal(invz),
                     torch.full_like(invz, float("inf")))
 
-    def image(t):  # (B, 32, 128) tiles -> (height, width)
+    def image(t):  # (B, tile_h, 128) tiles -> (height, width)
         return (
-            t.reshape(nby, nbx, TILE_H, TILE_W)
+            t.reshape(nby, nbx, tile_h, TILE_W)
             .permute(0, 2, 1, 3)
-            .reshape(nby * TILE_H, nbx * TILE_W)[:height, :width]
+            .reshape(nby * tile_h, nbx * TILE_W)[:height, :width]
         )
 
     return image(z), image(idx)
@@ -206,19 +216,9 @@ def resolve_inputs(vertices, faces, rotation, translation, focal_lengths,
                    height, width, max_tris_per_tile=256, device="cuda"):
     """Setup + binning of one view: (the argument tuple of resolve_tiles,
     overflow int32 scalar tensor)."""
-    device = resolve_device(device)
-
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=device)
-
-    if face_vertices is None:
-        vertices = f32(vertices)
-        faces = torch.as_tensor(faces, dtype=torch.int64, device=device)
-    else:  # the gather-free path reads neither
-        face_vertices = f32(face_vertices)
-    setup = tiles._make_setup(
-        vertices, faces, f32(rotation), f32(translation),
-        f32(focal_lengths), f32(principal_point), face_vertices,
+    setup = tiles.setup_inputs(
+        vertices, faces, rotation, translation, focal_lengths,
+        principal_point, face_vertices, device,
     )
     y_offset = float(y_offset)
     cand, counts, overflow = tiles._bin_triangles(

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .. import geometry
+from ..data import resolve_device
 
 Z_NEAR = 1e-6
 
@@ -113,6 +114,27 @@ def _make_setup(vertices, faces, rotation, translation, focal_lengths,
         vertices, rotation, translation, focal_lengths, principal_point
     )
     return _triangle_setup(pix, z_cam, faces)
+
+
+def setup_inputs(vertices, faces, rotation, translation, focal_lengths,
+                 principal_point, face_vertices=None, device="cuda"):
+    """Triangle setup of one view from host or device inputs (numpy
+    arrays or tensors): the gather-free path when `face_vertices` is given,
+    which then reads neither `vertices` nor `faces`."""
+    device = resolve_device(device)
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    if face_vertices is None:
+        vertices = f32(vertices)
+        faces = torch.as_tensor(faces, dtype=torch.int64, device=device)
+    else:
+        face_vertices = f32(face_vertices)
+    return _make_setup(
+        vertices, faces, f32(rotation), f32(translation),
+        f32(focal_lengths), f32(principal_point), face_vertices,
+    )
 
 
 def _tile_range(lo, hi, size, n):

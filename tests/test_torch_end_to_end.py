@@ -254,16 +254,24 @@ def test_unported_features_raise(tmp_path, cube_scene):
         renderer.prepare([cam, lens])
     with pytest.raises(NotImplementedError, match="clipping"):
         render.triangles(mesh, clip_near=True, device="cpu")
+    # a mesh of DENSE_THRESHOLD faces goes to the dense rasterizer (these
+    # faces are degenerate: nothing is drawn); lens and clipping still raise
     big = convert.ply(mesh)
     big.faces = np.zeros((16384, 3), np.int32)
-    with pytest.raises(NotImplementedError, match="dense rasterizer"):
-        render.triangles(big, device="cpu")
+    dense_renderer = render.triangles(big, device="cpu")
+    ids, _ = dense_renderer.render(cam)
+    assert bool((ids.view(torch.int32) == -1).all())
+    assert dense_renderer.dense_cap_policy._cap[(cam.height, cam.width)]
+    with pytest.raises(NotImplementedError, match="lens distortion"):
+        dense_renderer.render(lens)
+    with pytest.raises(NotImplementedError, match="clipping"):
+        render.triangles(big, clip_near=True, device="cpu")
     assert render.triangles(big, backend="tile",
                             device="cpu").getPrimitivesNum() == 16384
     rot, trans, fl, pp = stack_cameras(cams)
-    with pytest.raises(NotImplementedError, match="dense rasterizer"):
-        distributed.plan_fuse(vertices, big.faces, rot, trans, fl, pp,
-                              height=128, width=160, device="cpu")
+    plan = distributed.plan_fuse(vertices, big.faces, rot, trans, fl, pp,
+                                 height=128, width=160, device="cpu")
+    assert plan.dense_e_cap == (0, 0, 2)
 
 
 def test_convert_camera_and_ply(tmp_path, cube_scene):

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from semantic_meshes_torch import distributed, fusion, ops, testing
-from semantic_meshes_torch.rasterize import tile_kernel
+from semantic_meshes_torch import distributed, fusion, ops, render, testing
+from semantic_meshes_torch.rasterize import dense, dense_kernel, tile_kernel
 from semantic_meshes_torch.data import Camera, stack_cameras
 
 pytestmark = pytest.mark.gpu
@@ -96,3 +96,79 @@ def test_batched_pipeline_card_equals_cpu(cuda):
                                rtol=1e-5, atol=1e-6)
     agg = fusion.MeshAggregator(len(f), 7, "summax", device=cuda)
     assert agg.device.type == "cuda"
+
+
+def _mixed_scene():
+    """Micro, small and big triangles at 256x96 (all three dense classes)."""
+    rng = np.random.default_rng(3)
+    verts, tris = [], []
+    for n, size, z in ((30, 0.01, 4.0), (10, 0.6, 5.0)):
+        for _ in range(n):
+            c = rng.normal(size=3) * 0.8
+            c[2] = z + rng.random()
+            base = len(verts)
+            verts += [c, c + [size, 0, 0], c + [0, size, 0]]
+            tris.append([base, base + 1, base + 2])
+    base = len(verts)
+    verts += [[-4, -4, 7], [4, -4, 7], [0, 5, 7]]
+    tris.append([base, base + 1, base + 2])
+    cam = Camera(np.eye(3), np.zeros(3), (256, 96), [40.0, 40.0],
+                 [128.0, 48.0])
+    return np.asarray(verts, np.float32), np.asarray(tris, np.int32), cam
+
+
+def _dense_scenes():
+    v, f, cam = _mixed_scene()
+    yield v, f, cam, {}
+    yield v, f, cam, dict(n_global=0, micro_max=1)  # no global bucket
+    v, f = testing.make_cube(9)  # bench.py's `default`, forced dense
+    yield v, f, testing.make_ring_cameras(8, 1024, 768)[3], {}
+    v, f = testing.make_cube(91)  # one view of bench.py's `scannet`
+    yield v, f, testing.make_ring_cameras(8, 1296, 968)[5], dict(
+        micro_max=3)
+
+
+@pytest.mark.parametrize("k", range(4))
+def test_raster_dense_matches_plain(cuda, k):
+    v, f, cam, kw = list(_dense_scenes())[k]
+    args, _, overflow = dense.resolve_inputs(
+        v, f, cam.rotation, cam.translation, cam.focal_lengths,
+        cam.principal_point, height=cam.height, width=cam.width,
+        device=cuda, **kw)
+    before = dense_kernel.launches
+    zk, ik = dense_kernel.resolve_dense(*args)
+    torch.cuda.synchronize()
+    assert dense_kernel.launches == before + 1
+    zp, ip = dense_kernel.resolve_dense_plain(*args)
+    # only the big triangles past an n_global cap may be dropped
+    starts = args[2]
+    n_big = int(starts[-1] - starts[-2])
+    assert int(overflow) == max(n_big - kw.get("n_global", dense.N_GLOBAL),
+                                0)
+    assert torch.equal(ik, ip)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    assert bool((ik >= 0).any())
+    # and the CPU run of the plain version agrees with the card's
+    zc, ic = dense_kernel.resolve_dense_plain(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args))
+    assert torch.equal(ic, ik.cpu())
+    assert torch.equal(zc.view(torch.int32), zk.cpu().view(torch.int32))
+
+
+def test_dense_renderer_card_equals_cpu(cuda):
+    """The dense main path (auto dispatch, probed budgets, micro scatter,
+    kernel) on the card gives the CPU run's ids, bit for bit."""
+    from types import SimpleNamespace
+
+    v, f = testing.make_cube(37)  # 16428 faces: the dense rasterizer
+    mesh = SimpleNamespace(vertices=v, faces=f)
+    cams = testing.make_ring_cameras(2, 640, 480)
+    out = {}
+    for device in (cuda, "cpu"):
+        r = render.triangles(mesh, device=device)
+        r.prepare(cams)
+        out[str(device)] = [r.render(c) for c in cams]
+        assert r.overflow_total() == 0
+    for (ig, dg), (ic, dc) in zip(out[str(cuda)], out["cpu"]):
+        assert torch.equal(ig.cpu().view(torch.int32), ic.view(torch.int32))
+        assert torch.equal(dg.cpu().view(torch.int32), dc.view(torch.int32))

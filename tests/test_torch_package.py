@@ -25,6 +25,7 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, semantic_meshes_torch\n"
         "import semantic_meshes_torch.rasterize.tile_kernel\n"
+        "import semantic_meshes_torch.rasterize.dense_kernel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -104,3 +105,36 @@ def test_pinhole_only_cameras_pass_the_lens_check():
     cams = testing.make_ring_cameras(2, 64, 32)
     render.check_pinhole(cams)  # all-zero lens: no error
     assert np.all(cams[0].distortion == 0)
+
+
+def test_dense_kernel_source_and_build_path():
+    src = (_build.CSRC / "raster_dense.cu").read_text()
+    assert 'extern "C" int sm_raster_dense(' in src
+    assert "cudaGetLastError" in src and "__fdiv_rn" in src
+    path = _build.library_path("raster_dense")
+    assert path.parent == ROOT / "build" / "torch_kernels"
+    assert path.name.startswith("libraster_dense-") and path.suffix == ".so"
+    assert path != _build.library_path("raster_tile")
+
+
+def test_dense_size_meshes_render_while_unported_features_raise(tmp_path):
+    """A mesh of DENSE_THRESHOLD faces or more goes to the dense
+    rasterizer (it raised before it was ported); near-plane clipping and
+    lens distortion still raise."""
+    vertices, faces = testing.make_cube(37)  # 16428 faces
+    assert len(faces) >= semantic_meshes_torch.rasterize.DENSE_THRESHOLD
+    write_mesh(tmp_path / "m.ply", vertices, faces)
+    mesh = data.Ply(tmp_path / "m.ply")
+    cam = testing.make_ring_cameras(1, 128, 96)[0]
+    renderer = render.triangles(mesh, device="cpu")
+    ids, depth = renderer.render(cam)
+    assert ids.dtype == torch.uint32 and tuple(ids.shape) == (128, 96)
+    assert bool((ids.view(torch.int32) >= 0).any())
+    assert renderer.overflow_total() == 0
+    with pytest.raises(NotImplementedError, match="clipping"):
+        render.triangles(mesh, clip_near=True, device="cpu")
+    lens = data.Camera(cam.rotation, cam.translation, cam.resolution,
+                       cam.focal_lengths, cam.principal_point,
+                       distortion=np.array([0.1, 0, 0, 0], np.float32))
+    with pytest.raises(NotImplementedError, match="lens distortion"):
+        renderer.render(lens)

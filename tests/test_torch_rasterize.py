@@ -256,21 +256,22 @@ def test_tri_ids_remap_matches_jax():
 
 
 def test_dispatch_refuses_dense_size_meshes():
+    """Dispatch refuses unknown backends only: a mesh of DENSE_THRESHOLD
+    faces goes to the dense rasterizer unless the tile one is asked for."""
     n = trast.DENSE_THRESHOLD
     faces = np.zeros((n, 3), np.int32)
     vertices = np.zeros((3, 3), np.float32)
     cam = _random_scene((32, 128))[2]
-    with pytest.raises(NotImplementedError, match="dense rasterizer"):
-        trast.rasterize(vertices, faces, *cam, height=32, width=128,
-                        device="cpu")
+    assert trast.check_backend(n) == "dense"
+    assert trast.check_backend(n - 1) == "tile"
     with pytest.raises(ValueError, match="unknown rasterizer backend"):
         trast.rasterize(vertices, faces, *cam, height=32, width=128,
-                        backend="dense", device="cpu")
-    # explicitly asked for: the tile backend takes it (degenerate faces)
-    ids, _, overflow = trast.rasterize(vertices, faces, *cam, height=32,
-                                       width=128, backend="tile",
-                                       device="cpu")
-    assert bool((ids == -1).all()) and int(overflow) == 0
+                        backend="xla", device="cpu")
+    for backend in (None, "dense", "tile"):  # degenerate faces: empty
+        ids, _, overflow = trast.rasterize(vertices, faces, *cam, height=32,
+                                           width=128, backend=backend,
+                                           device="cpu")
+        assert bool((ids == -1).all()) and int(overflow) == 0
 
 
 def test_cpu_resolve_never_counts_launches_and_cuda_path_refuses_cpu():
