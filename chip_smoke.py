@@ -9,12 +9,14 @@ card), in phases; each phase prints a line and raises on failure:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of both CUDA kernels from csrc/ (one nvcc per source, started
-   together) and their -Xptxas -v register / shared-memory reports;
+   together, with the baseline below when present) and their -Xptxas -v
+   register / shared-memory reports;
 3. every kernel against its plain PyTorch version on the card: raster_tile
    on every view of `default` and `large`, raster_dense on every view of
-   `scannet` and of `default` forced through the dense rasterizer (ids
-   equal, depths bit-equal, overflow 0), at the budgets the main path
-   probes;
+   `scannet` (twice, bit-identical) and of `default` forced through the
+   dense rasterizer (ids equal, depths bit-equal, overflow 0), at the
+   budgets the main path probes, and on the hand-binned scenes of
+   testing.DENSE_SCENES;
 4. the main paths, each with every launch counter set to 0 just before it
    and read just after:
    - `large` (cube s=16, 3072 triangles, 8 views of 2048x1536, 19
@@ -29,18 +31,24 @@ card), in phases; each phase prints a line and raises on failure:
    - `dense` (cube s=204, 499392 triangles, 4 views of 1024x768, 19
      classes): plan_fuse splits (uni-slot prefix), and fuse_views_planned
      in original face order equals the unsplit plan's fusion;
-5. times with CUDA events (medians after warm-up): each kernel and its
-   plain version, the bound of each kernel's work from this run's inputs,
-   the pieces of a dense view at `scannet`, the routing cost model's
-   coefficients they give, one fuse_views_planned batch per preset as
-   `rasterize_fuse_throughput`, and one traced batch per preset (idle
-   share, top device kernels).
+5. times with CUDA events (medians after warm-up; a kernel's own time
+   from replays of a CUDA graph of its launches, without the host's
+   per-launch work): each kernel and its plain version, the bound of
+   each kernel's work from this run's inputs, raster_dense at `scannet`
+   and forced-dense `default` also on each view's heaviest tile alone,
+   with its work items and the share of (candidate, warp) tests its cull
+   skipped, and in turns with a baseline raster_dense when BASELINE_DENSE
+   is present; the pieces of a dense view at `scannet`, the routing cost
+   model's coefficients they give, one fuse_views_planned batch per
+   preset as `rasterize_fuse_throughput`, and one traced batch per preset
+   (idle share, top device kernels).
 
 The line before the last is the kernel table as one JSON object; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 
+import ctypes
 import json
 import os
 import statistics
@@ -68,6 +76,12 @@ PEAK_BYTES_S = 3.35e12
 # multiply and two adds each once a*px is taken out of the pixel loop (a
 # thread's pixels share a column)
 FLOPS_PER_TEST = 12
+HERE = os.path.dirname(os.path.abspath(__file__))
+# An earlier raster_dense, timed in turns with the current one when its
+# source is present at this path (git ignores build/), e.g. from
+#   git show <rev>:semantic_meshes_torch/csrc/raster_dense.cu
+# Its C entry takes the 13 arguments of the kernel without a work buffer.
+BASELINE_DENSE = os.path.join("build", "raster_dense_baseline.cu")
 
 
 def phase(msg):
@@ -168,6 +182,20 @@ def cuda_time_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
+def graph_time_ms(fn, reps):
+    """Median over `reps` of the device time in ms of fn()'s launches:
+    captured once in a CUDA graph (after a warm-up) and replayed, so the
+    host's per-launch work does not enter the time."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_time_ms(graph.replay, reps)
+    del graph
+    return ms
+
+
 def assert_same_image(name, k, zk, ik, zp, ip):
     """Kernel vs plain version: ids equal, depths bit-equal. Returns the
     largest |depth difference| over finite pixels (0 when bit-equal)."""
@@ -204,23 +232,45 @@ def tile_vs_plain(device):
     return max_err
 
 
+def dense_inputs(name, device, backend=None):
+    """(budget, [(resolve_dense arguments, overflow)] per view) of scene
+    `name` at the budget the renderer probes."""
+    vertices, faces, cams = scene(name)
+    fv = face_vertices(vertices, faces, device)
+    cap = dense_budget(vertices, faces, cams, device, backend)
+    views = []
+    for cam in cams:
+        args, _, overflow = dense_view_inputs(fv, cam, cap, device)
+        if args is None:
+            raise AssertionError(f"{name}: zero pair budget {cap}")
+        views.append((args, overflow))
+    return cap, views
+
+
 def dense_vs_plain(device):
     """Phase 3, raster_dense at `scannet` (auto dispatch) and at `default`
-    forced dense, at the budgets the renderer probes."""
+    forced dense, at the budgets the renderer probes, and on the
+    hand-binned scenes of testing.DENSE_SCENES (work-item boundaries, ties
+    across items and between a global and an own candidate, long global
+    buckets, empty tiles, slivers and off-screen vertices). At `scannet`
+    the kernel runs twice per view and the two runs must give the same
+    bits."""
+    from semantic_meshes_torch import testing
     from semantic_meshes_torch.rasterize import dense_kernel
 
     max_err = 0.0
     for name, backend in (("scannet", None), ("default", "dense")):
-        vertices, faces, cams = scene(name)
-        fv = face_vertices(vertices, faces, device)
-        cap = dense_budget(vertices, faces, cams, device, backend)
+        cap, views = dense_inputs(name, device, backend)
         shapes = []
-        for k, cam in enumerate(cams):
-            args, _, overflow = dense_view_inputs(fv, cam, cap, device)
-            if args is None:
-                raise AssertionError(f"{name}: zero pair budget {cap}")
+        for k, (args, overflow) in enumerate(views):
             zk, ik = dense_kernel.resolve_dense_cuda(*args)
             zp, ip = dense_kernel.resolve_dense_plain(*args)
+            if name == "scannet":
+                z2, i2 = dense_kernel.resolve_dense_cuda(*args)
+                if not (torch.equal(i2, ik) and torch.equal(
+                        z2.view(torch.int32), zk.view(torch.int32))):
+                    raise AssertionError(f"scannet view {k}: two runs of "
+                                         "raster_dense differ")
             torch.cuda.synchronize()
             if int(overflow) != 0:
                 raise AssertionError(f"{name} view {k}: overflow "
@@ -231,9 +281,20 @@ def dense_vs_plain(device):
             B = starts.numel() - 2
             shapes.append((int(starts[B + 1] - starts[B]),
                            int((starts[1:B + 1] - starts[:B]).max())))
+        twice = ", two runs per view bit-identical" if name == "scannet" \
+            else ""
         phase(f"phase 3: raster_dense == plain at {name} (budget {cap}): "
-              f"{len(cams)} views, ids equal, depths bit-equal, overflow 0; "
-              f"(global bucket, heaviest own range) per view {shapes}")
+              f"{len(views)} views, ids equal, depths bit-equal, overflow 0"
+              f"{twice}; (global bucket, heaviest own range) per view "
+              f"{shapes}")
+    for name in testing.DENSE_SCENES:
+        args = testing.dense_resolve_scene(name, device)
+        zk, ik = dense_kernel.resolve_dense_cuda(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        torch.cuda.synchronize()
+        max_err = max(max_err, assert_same_image(name, 0, zk, ik, zp, ip))
+    phase(f"phase 3: raster_dense == plain on the hand-binned scenes "
+          f"{list(testing.DENSE_SCENES)}: ids equal, depths bit-equal")
     return max_err
 
 
@@ -427,9 +488,10 @@ def bound(ops, nbytes):
 
 
 def tile_times(name, device, card):
-    """raster_tile and its plain version at scene `name`: ms per view (CUDA
-    events, median over repetitions of all views back to back), with the
-    bound of one view's work computed from this run's inputs."""
+    """raster_tile and its plain version at scene `name`: ms per view (the
+    kernel's device time by graph_time_ms, and as launched view by view;
+    the plain version's by CUDA events around all views back to back),
+    with the bound of one view's work computed from this run's inputs."""
     from semantic_meshes_torch.rasterize import tile_kernel
 
     vertices, faces, cams = scene(name)
@@ -443,8 +505,10 @@ def tile_times(name, device, card):
     def all_views(fn):
         return lambda: [fn(*a) for a in inputs]
 
-    kernel_ms = cuda_time_ms(all_views(tile_kernel.resolve_tiles_cuda),
-                             reps=20) / n_views
+    kernel_ms = graph_time_ms(all_views(tile_kernel.resolve_tiles_cuda),
+                              reps=20) / n_views
+    eager_ms = cuda_time_ms(all_views(tile_kernel.resolve_tiles_cuda),
+                            reps=20) / n_views
     plain_ms = cuda_time_ms(all_views(tile_kernel.resolve_tiles_plain),
                             reps=5) / n_views
     # the mean view's candidate tests at the fp32 peak, against the bytes
@@ -465,7 +529,8 @@ def tile_times(name, device, card):
                                                  statistics.mean(view_bytes))
     phase(
         f"phase 5 [{card}]: {name} ({n_views} views {width}x{height}), per "
-        f"view: raster_tile {kernel_ms:.6f} ms, plain {plain_ms:.6f} ms; "
+        f"view: raster_tile {kernel_ms:.6f} ms ({eager_ms:.6f} ms launched "
+        f"view by view from Python), plain {plain_ms:.6f} ms; "
         f"sum(counts) per view {sum_counts} (mean {mean_counts}), heaviest "
         f"tile per view {max_counts}, bound {bound_ms:.6f} ms ({bound_by}: "
         f"ops {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms)"
@@ -474,11 +539,89 @@ def tile_times(name, device, card):
                 bound_by=bound_by)
 
 
-def dense_times(ctx, device, card):
+def start_baseline_build():
+    """Start nvcc on BASELINE_DENSE (same flags as the kernels) when that
+    source is present: (process, library path), or None."""
+    from semantic_meshes_torch import _build
+
+    src = os.path.join(HERE, BASELINE_DENSE)
+    if not os.path.exists(src):
+        return None
+    out = _build.BUILD_DIR / "libraster_dense_baseline.so"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
+                             str(out), src], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def baseline_dense_kernel(started):
+    """The baseline raster_dense built by start_baseline_build, as a
+    function of resolve_dense's arguments returning (depth, ids); None
+    when there is no baseline source."""
+    if started is None:
+        return None
+    proc, out = started
+    log = proc.communicate(timeout=600)[0]
+    if proc.returncode != 0:
+        raise RuntimeError(f"baseline raster_dense build failed:\n{log}")
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = ctypes.CDLL(str(out)).sm_raster_dense
+    fn.argtypes = (P, P, P, P, P, P, I, I, I, I, I, F, P)
+    fn.restype = ctypes.c_int
+
+    def run(table, sorted_ids, starts, n_global, key, y_offset, nbx, height,
+            width):
+        z = torch.empty((height, width), dtype=torch.float32,
+                        device=table.device)
+        ids = torch.empty((height, width), dtype=torch.int32,
+                          device=table.device)
+        err = fn(table.data_ptr(), sorted_ids.data_ptr(), starts.data_ptr(),
+                 0 if key is None else key.data_ptr(), z.data_ptr(),
+                 ids.data_ptr(),
+                 starts.numel() - 2, int(n_global), nbx, height, width,
+                 float(y_offset), torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"baseline raster_dense: CUDA error {err}")
+        return z, ids
+
+    return run
+
+
+def heaviest_alone(args):
+    """resolve_dense arguments of one view with every tile's own range
+    emptied except the heaviest tile's (the global bucket kept)."""
+    table, sorted_ids, starts, *rest = args
+    s = starts.long()
+    B = s.numel() - 2
+    b = int((s[1:B + 1] - s[:B]).argmax())
+    mine = sorted_ids[int(s[b]):int(s[b + 1])]
+    ids = torch.cat([mine, sorted_ids[int(s[B]):int(s[B + 1])]])
+    t = torch.arange(B + 2, device=s.device)
+    new = torch.where(t <= b, 0, mine.numel())
+    new[B + 1] = ids.numel()
+    return (table, ids.contiguous(), new.to(torch.int32), *rest)
+
+
+def in_turns(fns, inputs, reps):
+    """Per-view device ms of each function in `fns` (name -> function of
+    the resolve_dense arguments) over all `inputs` back to back, timed in
+    turns a, b, ..., ..., b, a (graph_time_ms, median of `reps` each
+    time); returns name -> list of the two timings."""
+    order = list(fns) + list(reversed(list(fns)))
+    out = {name: [] for name in fns}
+    for name in order:
+        fn = fns[name]
+        out[name].append(graph_time_ms(lambda: [fn(*a) for a in inputs],
+                                       reps=reps) / len(inputs))
+    return out
+
+
+def dense_times(ctx, device, card, baseline):
     """Per-view pieces of the dense path at `scannet`: setup + classify +
-    binning + table, the micro path, raster_dense (and its plain version,
-    and its bound from this run's starts), fusion. Returns the kernel's
-    row and the routing cost model's coefficients these times give."""
+    binning + table, the micro path, raster_dense (dense_kernel_row, and
+    its plain version), fusion, and the routing cost model's coefficients
+    these times give. Returns the kernel's row."""
     from semantic_meshes_torch import fusion
     from semantic_meshes_torch import rasterize as rast
     from semantic_meshes_torch.rasterize import (dense, dense_kernel,
@@ -525,45 +668,18 @@ def dense_times(ctx, device, card):
         inputs.append((table, sorted_ids, starts, dense.N_GLOBAL, key, 0.0,
                        dense._cdiv(width, dense.TILE_W), height, width))
 
-    def all_views(fn):
-        return lambda: [fn(*a) for a in inputs]
-
-    kernel_ms = cuda_time_ms(all_views(dense_kernel.resolve_dense_cuda),
-                             reps=20) / n_views
-    plain_ms = cuda_time_ms(all_views(dense_kernel.resolve_dense_plain),
-                            reps=3) / n_views
+    kernel = dense_kernel_row("scannet", inputs, baseline, card)
+    kernel_ms = kernel["ms"]
+    plain_ms = cuda_time_ms(lambda: [dense_kernel.resolve_dense_plain(*a)
+                                     for a in inputs], reps=3) / n_views
     ids = [dense_kernel.resolve_dense_cuda(*a)[1] for a in inputs]
     fusion_ms = cuda_time_ms(
         lambda: [fusion._accumulate_view(ids[k], ctx["probs"][k], None, IEW,
                                          num_primitives=T, aggregator="sum")
                  for k in range(n_views)],
         reps=10) / n_views
-
-    # bound of the mean view from this run's starts: every tile tests the
-    # first min(global, n_global) global ids and its own range, each at
-    # 2048 pixels x 12 flops; the bytes are one read of the starts, of the
-    # ids read (the global ids once, the own ranges once), of each table
-    # row they name and of the micro key image, and one write of the
-    # 8-byte-per-pixel image
-    tests, view_bytes, pairs = [], [], []
-    for table, sorted_ids, starts, n_global, key, *_ in inputs:
-        s = starts.long()
-        B = s.numel() - 2
-        g = min(int(s[B + 1] - s[B]), n_global)
-        own = int(s[B] - s[0]) if B else 0
-        tests.append(B * g + own)
-        pairs.append(int(s[B + 1] - s[0]))
-        rows = torch.cat([sorted_ids[int(s[B]):int(s[B]) + g],
-                          sorted_ids[:int(s[B])]])
-        view_bytes.append((B + 2) * 4 + (g + own) * 4
-                          + int(torch.unique(rows).numel()) * 64
-                          + key.numel() * 8 + width * height * 8)
-    ops = statistics.mean(tests) * dense.TILE_H * dense.TILE_W * \
-        FLOPS_PER_TEST
-    bound_ms, bound_by, ops_ms, bytes_ms = bound(ops,
-                                                 statistics.mean(view_bytes))
     frag_rows = micro_max * micro_max * micro_cap
-    coeffs = dict(alpha=kernel_ms * 1e6 / statistics.mean(pairs),
+    coeffs = dict(alpha=kernel_ms * 1e6 / statistics.mean(kernel["pairs"]),
                   beta=micro_ms * 1e6 / frag_rows,
                   gamma=bin_ms * 1e6 / (dense.K_SPAN * T))
     phase(
@@ -572,9 +688,7 @@ def dense_times(ctx, device, card):
         f"classify + sort binning + table {bin_ms:.6f} ms, micro path "
         f"{micro_ms:.6f} ms ({frag_rows} fragment rows), raster_dense "
         f"{kernel_ms:.6f} ms, plain {plain_ms:.6f} ms, fusion (sum, "
-        f"{classes} classes) {fusion_ms:.6f} ms; pairs per view {pairs}, "
-        f"candidate tests per view {tests}, bound {bound_ms:.6f} ms "
-        f"({bound_by}: ops {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms)"
+        f"{classes} classes) {fusion_ms:.6f} ms"
     )
     phase(
         f"phase 5 [{card}]: routing cost model at scannet, ns: alpha "
@@ -584,8 +698,87 @@ def dense_times(ctx, device, card):
         f"{dense.ROUTE_ALPHA}, beta {dense.ROUTE_BETA}, gamma "
         f"{dense.ROUTE_GAMMA}"
     )
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
+    row = {k: kernel[k] for k in ("ms", "bound_ms", "bound_by",
+                                  "heaviest_tile_ms", "items_per_view",
+                                  "culled_share", "baseline_ms",
+                                  "baseline_heaviest_tile_ms")}
+    return dict(row, plain_ms=plain_ms)
+
+
+def dense_kernel_row(label, inputs, baseline, card):
+    """raster_dense on every view of `inputs` (resolve_dense arguments):
+    ms per view, and on each view's heaviest tile alone, in turns with the
+    baseline kernel when there is one; the bound of the mean view from
+    this run's starts; work items and the culled share of (candidate,
+    warp) tests per view. Prints one line; returns the numbers."""
+    from semantic_meshes_torch.rasterize import dense_kernel
+
+    fns = {"current": dense_kernel.resolve_dense_cuda}
+    if baseline is not None:
+        fns = {"baseline": baseline, **fns}
+    turns = in_turns(fns, inputs, reps=20)
+    heavy = in_turns(fns, [heaviest_alone(a) for a in inputs], reps=20)
+
+    # bound of the mean view from this run's starts: every tile tests the
+    # first min(global, n_global) global ids and its own range, each at
+    # 2048 pixels x 12 flops; the bytes are one read of the starts, of the
+    # ids read (the global ids once, the own ranges once), of each table
+    # row they name and of the micro key image, and one write of the
+    # 8-byte-per-pixel image
+    tests, view_bytes, pairs, items, culled, heaviest = [], [], [], [], [], []
+    for args in inputs:
+        table, sorted_ids, starts, n_global, key, _, _, height, width = args
+        s = starts.long()
+        B = s.numel() - 2
+        g = max(min(int(s[B + 1] - s[B]), n_global), 0)
+        own_b = s[1:B + 1] - s[:B]
+        own = int(own_b.sum())
+        tests.append(B * g + own)
+        pairs.append(int(s[B + 1] - s[0]))
+        heaviest.append(int(own_b.max()))
+        items.append(int(torch.clamp(-(-(g + own_b) // dense_kernel.ITEM),
+                                     min=1).sum()))
+        _, _, work = dense_kernel.launch_dense(*args)
+        run = int(dense_kernel.tests_run(work, B))
+        culled.append(1 - run / (dense_kernel.WARPS * tests[-1])
+                      if tests[-1] else 0.0)
+        rows = torch.cat([sorted_ids[int(s[B]):int(s[B]) + g],
+                          sorted_ids[:int(s[B])]])
+        view_bytes.append((B + 2) * 4 + (g + own) * 4
+                          + int(torch.unique(rows).numel()) * 64
+                          + (0 if key is None else key.numel() * 8)
+                          + width * height * 8)
+    ops = statistics.mean(tests) * dense_kernel.TILE_H * \
+        dense_kernel.TILE_W * FLOPS_PER_TEST
+    bound_ms, bound_by, ops_ms, bytes_ms = bound(ops,
+                                                 statistics.mean(view_bytes))
+    out = dict(
+        ms=statistics.mean(turns["current"]), bound_ms=bound_ms,
+        bound_by=bound_by,
+        heaviest_tile_ms=statistics.mean(heavy["current"]),
+        items_per_view=items, culled_share=statistics.mean(culled),
+        baseline_ms=(statistics.mean(turns["baseline"]) if baseline
+                     else None),
+        baseline_heaviest_tile_ms=(statistics.mean(heavy["baseline"])
+                                   if baseline else None),
+        pairs=pairs)
+    base = ("; baseline kernel (in turns baseline, current, current, "
+            f"baseline): {turns['baseline']} ms, heaviest tile alone "
+            f"{heavy['baseline']} ms" if baseline else
+            f"; baseline kernel: not measured (no {BASELINE_DENSE})")
+    phase(
+        f"phase 5 [{card}]: raster_dense at {label} ({len(inputs)} views), "
+        f"per view: {out['ms']:.6f} ms (turns {turns['current']}), heaviest "
+        f"tile alone {out['heaviest_tile_ms']:.6f} ms (turns "
+        f"{heavy['current']}); bound {bound_ms:.6f} ms ({bound_by}: ops "
+        f"{ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms, every pair at every "
+        f"pixel), culled share of (candidate, warp) tests "
+        f"{out['culled_share']:.6f} (per view "
+        f"{[round(c, 6) for c in culled]}); pairs per view {pairs}, "
+        f"candidate tests per view {tests}, heaviest own range per view "
+        f"{heaviest}, work items per view {items}{base}"
+    )
+    return out
 
 
 def device_busy(label, fn, batch_ms, card):
@@ -689,8 +882,7 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; "
                  "this run needs a CUDA card")
-    here = os.path.dirname(os.path.abspath(__file__))
-    sys.path.insert(0, here)
+    sys.path.insert(0, HERE)
     try:
         from semantic_meshes_torch import _build
     except ImportError as e:
@@ -702,7 +894,9 @@ def main():
     card = card_line()
     phase(f"phase 1: card: {card}")
 
+    baseline_build = start_baseline_build()
     _build.build("raster_tile", "raster_dense")
+    baseline = baseline_dense_kernel(baseline_build)
     for name in ("raster_tile", "raster_dense"):
         report = [ln.strip() for ln in _build.build_log(name).splitlines()
                   if "ptxas info" in ln and ("Used" in ln
@@ -719,7 +913,11 @@ def main():
 
     tile_times("default", device, card)
     tile_row = tile_times("large", device, card)
-    dense_row = dense_times(scannet, device, card)
+    dense_row = dense_times(scannet, device, card, baseline)
+    dense_kernel_row("default forced dense",
+                     [a for a, _ in dense_inputs("default", device,
+                                                 "dense")[1]],
+                     baseline, card)
     large_times(large, device, card)
     batch_throughput("large", large, device, card)
     batch_throughput("scannet", scannet, device, card)

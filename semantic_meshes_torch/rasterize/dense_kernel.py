@@ -15,7 +15,10 @@ one packed int64 key per pixel, (z bits << 32) | id, +inf background.
 
 `resolve_dense` is the one entry: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it runs `resolve_dense_plain`. There is no
-fallback from one to the other.
+fallback from one to the other. The kernel cuts each tile's list into work
+items of ITEM candidates and merges a tile's items through a zeroed work
+buffer the wrapper allocates (`launch_dense` returns it; `tests_run` reads
+how many (candidate, warp) tests its cull left).
 """
 
 from __future__ import annotations
@@ -28,6 +31,13 @@ from . import tile_kernel
 
 TILE_H = 16
 TILE_W = tile_kernel.TILE_W
+# candidates per work item of the kernel (csrc/raster_dense.cu's kItem): a
+# tile's list of G global + own candidates is cut into
+# max(1, ceil((G + own) / ITEM)) items
+ITEM = 64
+# warps per tile in the kernel: each candidate of a tile's list is one
+# (candidate, warp) test per warp, which the kernel's cull may skip
+WARPS = 8
 
 # packed micro key of an empty pixel: +inf depth bits, the largest id
 BG_KEY = (0x7F800000 << 32) | 0x7FFFFFFF
@@ -46,7 +56,7 @@ def _kernel():
     from .. import _build
 
     fn = _build.load("raster_dense").sm_raster_dense
-    fn.argtypes = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
+    fn.argtypes = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
     fn.restype = ctypes.c_int
     return fn
 
@@ -105,10 +115,25 @@ def resolve_dense_plain(table, sorted_ids, starts, n_global, micro_key,
     return z, ids
 
 
-def resolve_dense_cuda(table, sorted_ids, starts, n_global, micro_key,
-                       y_offset, nbx, height, width):
+def work_size(num_tiles):
+    """int64 elements of the kernel's zeroed work buffer: a per-pixel key
+    per pixel of every tile, the count of (candidate, warp) tests run, and
+    one uint32 arrival counter per tile."""
+    return num_tiles * TILE_H * TILE_W + 1 + -(-num_tiles // 2)
+
+
+def tests_run(work, num_tiles):
+    """(candidate, warp) tests the launch that filled `work` ran (a 0-dim
+    device tensor); of WARPS x every candidate of every tile's list, the
+    rest were culled."""
+    return work[num_tiles * TILE_H * TILE_W]
+
+
+def launch_dense(table, sorted_ids, starts, n_global, micro_key, y_offset,
+                 nbx, height, width):
     """Launch csrc/raster_dense.cu on the current stream (no sync). The ids
-    in `sorted_ids` must index rows of `table`."""
+    in `sorted_ids` must index rows of `table`. Returns (depth, ids, work):
+    `work` is the kernel's scratch (see tests_run)."""
     global launches
     checks = [("table", table, torch.float32),
               ("sorted_ids", sorted_ids, torch.int32),
@@ -134,11 +159,14 @@ def resolve_dense_cuda(table, sorted_ids, starts, n_global, micro_key,
                          f"{tuple(micro_key.shape)}")
     if not 0 <= int(n_global) < 2**31:
         raise ValueError(f"n_global must be in [0, 2^31), got {n_global}")
+    if sorted_ids.numel() >= 2**30:  # a tile's list length stays an int32
+        raise ValueError(f"at most 2^30 sorted ids, got {sorted_ids.numel()}")
     if table.data_ptr() % 16:
         raise ValueError("table must be 16-byte aligned (float4 rows)")
     kernel = _kernel()
     z = torch.empty((height, width), dtype=torch.float32, device=table.device)
     ids = torch.empty((height, width), dtype=torch.int32, device=table.device)
+    work = torch.zeros(work_size(B), dtype=torch.int64, device=table.device)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = kernel(
@@ -148,6 +176,7 @@ def resolve_dense_cuda(table, sorted_ids, starts, n_global, micro_key,
             ctypes.c_void_p(0 if micro_key is None else micro_key.data_ptr()),
             ctypes.c_void_p(z.data_ptr()),
             ctypes.c_void_p(ids.data_ptr()),
+            ctypes.c_void_p(work.data_ptr()),
             ctypes.c_int(B), ctypes.c_int(int(n_global)), ctypes.c_int(nbx),
             ctypes.c_int(height), ctypes.c_int(width),
             ctypes.c_float(float(y_offset)),
@@ -156,6 +185,15 @@ def resolve_dense_cuda(table, sorted_ids, starts, n_global, micro_key,
     if err != 0:
         raise RuntimeError(f"raster_dense launch failed: CUDA error {err}")
     launches += 1
+    return z, ids, work
+
+
+def resolve_dense_cuda(table, sorted_ids, starts, n_global, micro_key,
+                       y_offset, nbx, height, width):
+    """Launch csrc/raster_dense.cu on the current stream (no sync). The ids
+    in `sorted_ids` must index rows of `table`."""
+    z, ids, _ = launch_dense(table, sorted_ids, starts, n_global, micro_key,
+                             y_offset, nbx, height, width)
     return z, ids
 
 

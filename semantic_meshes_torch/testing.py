@@ -3,7 +3,9 @@
 Counterpart of `make_cube`, `make_ring_cameras` and `random_probs` in
 `semantic_meshes/testing.py` (numpy only, so both packages build the very
 same scene from the same arguments): a subdivided cube viewed by pinhole
-cameras on a ring, fused with random class probabilities.
+cameras on a ring, fused with random class probabilities. The port's own
+`dense_resolve_scene` builds inputs of the dense z-resolve directly in
+screen space, binned by hand.
 """
 
 from __future__ import annotations
@@ -86,3 +88,122 @@ def random_probs(rng, height, width, classes, dont_care_frac=0.0):
         dc = rng.random((height, width)) < dont_care_frac
         probs[dc] = 0.0
     return probs
+
+
+# hand-binned scenes of dense_resolve_scene: work-item boundaries (a tile
+# of ITEM - 1, ITEM, ITEM + 1 and 3 ITEM + 5 candidates), exact depth ties
+# across items and between a global and an own candidate, global buckets
+# over ITEM long (clamped or dropped by n_global), empty tiles, and slivers
+# and far-off-screen or overflowing vertices
+DENSE_SCENES = ("items", "tie_items", "tie_global", "global_big",
+                "global_clamped", "no_global", "slivers")
+
+
+def _screen_tris(rng, n, box, size, z=(2.0, 10.0)):
+    """n random triangles (vertices (n, 3, 2), depths (n, 3)) with centres
+    in box = (x0, y0, x1, y1) and vertex offsets up to `size` pixels."""
+    x0, y0, x1, y1 = box
+    c = rng.uniform([x0, y0], [x1, y1], size=(n, 2))
+    p = c[:, None, :] + rng.uniform(-size, size, size=(n, 3, 2))
+    return p, rng.uniform(*z, size=(n, 3))
+
+
+def _adversarial_tris(rng, n, box):
+    """Slivers, sub-pixel triangles, collinear ones, and triangles with
+    vertices far off screen or large enough to overflow the edge forms."""
+    p, z = _screen_tris(rng, n, box, 6.0)
+    kind = rng.integers(0, 5, size=n)
+    far = rng.choice([1e4, 1e7, 1e20, 1e30], size=(n, 2))
+    far *= rng.choice([-1.0, 1.0], size=(n, 2))
+    for i in range(n):
+        if kind[i] == 0:  # sliver: the third vertex 1e-3 px off the edge
+            p[i, 2] = (p[i, 0] + p[i, 1]) / 2 + 1e-3
+        elif kind[i] == 1:  # sub-pixel
+            p[i, 1:] = p[i, 0] + rng.uniform(-0.4, 0.4, size=(2, 2))
+        elif kind[i] == 2:  # collinear (zero area)
+            p[i, 2] = 2 * p[i, 1] - p[i, 0]
+        elif kind[i] == 3:  # one vertex far off screen
+            p[i, rng.integers(0, 3)] = far[i]
+    return p, z
+
+
+def dense_resolve_scene(name, device="cpu"):
+    """resolve_dense arguments (table, sorted_ids, starts, n_global,
+    micro_key, y_offset, nbx, height, width) of the hand-binned scene
+    `name` (one of DENSE_SCENES), made from a seed. Tile lists hold ids in
+    ascending order with the global bucket after them, as the sort binning
+    leaves them; a triangle listed in a tile need not cover it."""
+    import torch
+
+    from .rasterize import dense, dense_kernel, tile_kernel, tiles
+
+    K = dense_kernel.ITEM
+    rng = np.random.default_rng(sum(map(ord, name)))
+    n_global, y_offset, micro = dense.N_GLOBAL, 0.0, False
+    width, height = 256, 48
+    glob = None
+    if name == "items":
+        counts, micro = [K - 1, K, K + 1, 3 * K + 5, 0, 7], True
+        glob = _screen_tris(rng, 3, (0, 0, width, height), 80.0)
+    elif name == "tie_items":
+        width, height, counts = 128, 16, [2 * K + 10]
+    elif name == "tie_global":
+        counts = [K + 50, 3, 0, 0, 0, 9]
+    elif name in ("global_big", "global_clamped", "no_global"):
+        width, height, y_offset, micro = 384, 48, 7.0, True
+        counts = [5, 0, 40, 0, 300, 1, 0, 0, 17]
+        glob = _screen_tris(rng, K + 37, (0, 7, width, height + 7), 60.0)
+        n_global = {"global_big": n_global, "global_clamped": K + 3,
+                    "no_global": 0}[name]
+    elif name == "slivers":
+        width, height, counts = 256, 32, [600, 20, 0, 0]
+        glob = _adversarial_tris(rng, 2, (0, 0, width, height))
+    else:
+        raise KeyError(name)
+    nbx = -(-width // dense_kernel.TILE_W)
+    ps, zs = [], []
+    for b, n in enumerate(counts):
+        ty, tx = divmod(b, nbx)
+        box = (tx * dense_kernel.TILE_W, ty * dense_kernel.TILE_H + y_offset,
+               (tx + 1) * dense_kernel.TILE_W,
+               (ty + 1) * dense_kernel.TILE_H + y_offset)
+        if name == "slivers":
+            p, z = _adversarial_tris(rng, n, box)
+        else:
+            p, z = _screen_tris(rng, n, box, 12.0)
+        if name == "tie_items":  # three copies of one nearest triangle
+            for i in (3, K + 20, 2 * K + 5):
+                p[i] = [[10, 1], [120, 4], [40, 15]]
+                z[i] = 1.0
+        if name == "tie_global" and b == 0:  # copies of the global one
+            for i in (0, K + 10):
+                p[i] = [[5, 2], [100, 6], [20, 14]]
+                z[i] = 1.5
+        ps.append(p)
+        zs.append(z)
+    if name == "tie_global":
+        glob = (np.array([[[5, 2], [100, 6], [20, 14]],
+                          [[0, 0], [256, 0], [0, 48]]], np.float64),
+                np.array([[1.5] * 3, [9.0] * 3]))
+    if glob is not None:
+        ps.append(glob[0])
+        zs.append(glob[1])
+    setup = tiles._setup_from_projected(
+        torch.as_tensor(np.concatenate(ps), dtype=torch.float32),
+        torch.as_tensor(np.concatenate(zs), dtype=torch.float32))
+    table = tile_kernel.candidate_table(setup).to(device)
+    T = table.shape[0] - 1
+    own = int(sum(counts))
+    starts = np.concatenate([[0], np.cumsum(counts), [T]]).astype(np.int32)
+    assert starts[-2] == own
+    key = None
+    if micro:  # a sparse micro-fragment image to merge
+        hit = rng.random((height, width)) < 0.05
+        zbits = np.float32(rng.uniform(1.5, 9.0, size=(height, width)))
+        packed = (zbits.view(np.int32).astype(np.int64) << 32) | \
+            rng.integers(0, T, size=(height, width))
+        key = torch.as_tensor(np.where(hit, packed, dense_kernel.BG_KEY),
+                              device=device)
+    return (table, torch.arange(T, dtype=torch.int32, device=device),
+            torch.as_tensor(starts, device=device), n_global, key, y_offset,
+            nbx, height, width)

@@ -155,6 +155,42 @@ def test_raster_dense_matches_plain(cuda, k):
     assert torch.equal(zc.view(torch.int32), zk.cpu().view(torch.int32))
 
 
+@pytest.mark.parametrize("name", testing.DENSE_SCENES)
+def test_raster_dense_split_ties_and_cull(cuda, name):
+    """Hand-binned scenes: a tile of ITEM - 1, ITEM, ITEM + 1 and
+    3 ITEM + 5 candidates (work items), exact depth ties across an item
+    boundary and between a global and an own candidate (the earlier in
+    the tile's list wins), n_global = 0 and global buckets over ITEM,
+    empty tiles, slivers and far-off-screen vertices. Bit-equal to the
+    plain version, and the same bits on a second run."""
+    args = testing.dense_resolve_scene(name, cuda)
+    before = dense_kernel.launches
+    zk, ik, work = dense_kernel.launch_dense(*args)
+    z2, i2 = dense_kernel.resolve_dense(*args)
+    torch.cuda.synchronize()
+    assert dense_kernel.launches == before + 2
+    zp, ip = dense_kernel.resolve_dense_plain(*args)
+    assert torch.equal(ik, ip)
+    assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
+    assert torch.equal(i2, ik)
+    assert torch.equal(z2.view(torch.int32), zk.view(torch.int32))
+    assert bool((ik >= 0).any())
+    starts = args[2].long()
+    B = starts.numel() - 2
+    g = max(min(int(starts[-1] - starts[-2]), args[3]), 0)
+    listed = B * g + int(starts[-2])
+    run = int(dense_kernel.tests_run(work, B))
+    assert 0 < run <= dense_kernel.WARPS * listed
+    if name == "tie_items":  # the first of the three copies wins
+        K = dense_kernel.ITEM
+        assert int((ik == 3).sum()) > 0
+        assert not bool(((ik == K + 20) | (ik == 2 * K + 5)).any())
+    if name == "tie_global":  # the global copy beats both own copies
+        T = args[0].shape[0] - 1
+        assert int((ik == T - 2).sum()) > 0
+        assert not bool(((ik == 0) | (ik == dense_kernel.ITEM + 10)).any())
+
+
 def test_dense_renderer_card_equals_cpu(cuda):
     """The dense main path (auto dispatch, probed budgets, micro scatter,
     kernel) on the card gives the CPU run's ids, bit for bit."""
