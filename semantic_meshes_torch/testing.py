@@ -93,10 +93,11 @@ def random_probs(rng, height, width, classes, dont_care_frac=0.0):
 # hand-binned scenes of dense_resolve_scene: work-item boundaries (a tile
 # of ITEM - 1, ITEM, ITEM + 1 and 3 ITEM + 5 candidates), exact depth ties
 # across items and between a global and an own candidate, global buckets
-# over ITEM long (clamped or dropped by n_global), empty tiles, and slivers
-# and far-off-screen or overflowing vertices
+# over ITEM long (clamped or dropped by n_global), empty tiles, slivers and
+# far-off-screen or overflowing vertices, and an image of 1100 tiles (the
+# kernel maps items to tiles through windows of 1024 tiles)
 DENSE_SCENES = ("items", "tie_items", "tie_global", "global_big",
-                "global_clamped", "no_global", "slivers")
+                "global_clamped", "no_global", "slivers", "many_tiles")
 
 
 def _screen_tris(rng, n, box, size, z=(2.0, 10.0)):
@@ -158,6 +159,13 @@ def dense_resolve_scene(name, device="cpu"):
     elif name == "slivers":
         width, height, counts = 256, 32, [600, 20, 0, 0]
         glob = _adversarial_tris(rng, 2, (0, 0, width, height))
+    elif name == "many_tiles":  # one column of 1100 tiles
+        width, height = 128, 1100 * dense_kernel.TILE_H
+        counts = [0] * 1100
+        for b, n in ((0, 3), (700, K + 1), (1023, K), (1024, 1),
+                     (1050, K + 6), (1099, 5)):
+            counts[b] = n
+        glob = _screen_tris(rng, 2, (0, 0, width, height), 90.0)
     else:
         raise KeyError(name)
     nbx = -(-width // dense_kernel.TILE_W)
