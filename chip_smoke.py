@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Chip smoke run of semantic_meshes_torch on one CUDA card (sm_90a).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against DIR ...]
 
 Drives the port's main paths through their public entry points, at three
 of bench.py's presets (random probabilities from a seed, made on the
 card), in phases; each phase prints a line and raises on failure:
 
 1. the card's name and power limit (nvidia-smi);
-2. build of both CUDA kernels from csrc/ (one nvcc per source, started
-   together, with the baseline below when present) and their -Xptxas -v
+2. build of both CUDA kernels from csrc/ (one nvcc per source, all
+   started together, those of --against too) and their -Xptxas -v
    register / shared-memory reports;
 3. every kernel against its plain PyTorch version on the card: raster_tile
    on every view of `default` and `large`, raster_dense on every view of
@@ -31,24 +31,33 @@ card), in phases; each phase prints a line and raises on failure:
    - `dense` (cube s=204, 499392 triangles, 4 views of 1024x768, 19
      classes): plan_fuse splits (uni-slot prefix), and fuse_views_planned
      in original face order equals the unsplit plan's fusion;
-5. times with CUDA events (medians after warm-up; a kernel's own time
-   from replays of a CUDA graph of its launches, without the host's
-   per-launch work): each kernel and its plain version, the bound of
-   each kernel's work from this run's inputs, raster_dense at `scannet`
+5. times with CUDA events (medians after warm-up): each kernel's time
+   per view both as `ms`, from replays of a CUDA graph of its launches
+   (the device's own time), and as `launched_ms`, with Python launching
+   the views one by one as the main path does; its plain version; the
+   bound of its work from this run's inputs; raster_dense at `scannet`
    and forced-dense `default` also on each view's heaviest tile alone,
    with its work items and the share of (candidate, warp) tests its cull
-   skipped, and in turns with a baseline raster_dense when BASELINE_DENSE
-   is present; the pieces of a dense view at `scannet`, the routing cost
+   skipped; the pieces of a dense view at `scannet`, the routing cost
    model's coefficients they give, one fuse_views_planned batch per
    preset as `rasterize_fuse_throughput`, and one traced batch per preset
    (idle share, top device kernels).
+
+--against DIR (repeatable) names a checkout of an earlier commit, e.g.
+    mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
+        tar -x -C build/parent
+whose package is loaded beside this one; its kernels are built with this
+one's and timed in turns with them (DIR, ..., this, this, ..., DIR) on
+the same inputs, and the kernel line gains an "against" entry per DIR.
 
 The line before the last is the kernel table as one JSON object; the last
 line is {"ok": true, "device": {...}}. Without a CUDA card, or without the
 repository beside it, the script exits non-zero and prints no result.
 """
 
-import ctypes
+import argparse
+import importlib
+import importlib.util
 import json
 import os
 import statistics
@@ -56,6 +65,8 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -69,19 +80,18 @@ SCENES = {
 }
 IEW = 0.5
 SEED = 0
-# H100 SXM peaks (NVIDIA data sheet): non-tensor fp32 and HBM3 bandwidth
+# H100 SXM peaks (NVIDIA data sheet): non-tensor fp32 and HBM3 bandwidth.
+# The 67 TFLOP/s counts an FMA as two operations; the kernels round every
+# multiply and add on its own (-fmad=false), one per lane and clock, so
+# their operations run at half that rate.
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_OPS = PEAK_FP32_FLOPS / 2
 PEAK_BYTES_S = 3.35e12
-# flops per (candidate, pixel): four affine forms a*px + b*py + c, a
-# multiply and two adds each once a*px is taken out of the pixel loop (a
-# thread's pixels share a column)
+# fp32 operations per (candidate, pixel): four affine forms a*px + b*py +
+# c, a multiply and two adds each once a*px is taken out of the pixel loop
+# (a thread's pixels share a column)
 FLOPS_PER_TEST = 12
 HERE = os.path.dirname(os.path.abspath(__file__))
-# An earlier raster_dense, timed in turns with the current one when its
-# source is present at this path (git ignores build/), e.g. from
-#   git show <rev>:semantic_meshes_torch/csrc/raster_dense.cu
-# Its C entry takes the 13 arguments of the kernel without a work buffer.
-BASELINE_DENSE = os.path.join("build", "raster_dense_baseline.cu")
 
 
 def phase(msg):
@@ -166,6 +176,28 @@ def dense_view_inputs(fv, cam, cap, device):
                                      **rast.dense_kwargs(cap))
 
 
+def load_against(path, index):
+    """The kernel wrappers of the package semantic_meshes_torch in the
+    checkout at `path`, imported beside this one as module
+    `_against<index>` (its kernels build into its own build/)."""
+    pkg = os.path.join(os.path.abspath(path), "semantic_meshes_torch")
+    name = f"_against{index}"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    if spec is None:
+        raise FileNotFoundError(f"--against {path}: no {pkg}/__init__.py")
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return SimpleNamespace(
+        build=importlib.import_module(f"{name}._build"),
+        tile=importlib.import_module(
+            f"{name}.rasterize.tile_kernel").resolve_tiles_cuda,
+        dense=importlib.import_module(
+            f"{name}.rasterize.dense_kernel").resolve_dense_cuda)
+
+
 def cuda_time_ms(fn, reps, warmup=2):
     """Median over `reps` of fn()'s device time in ms (CUDA events)."""
     for _ in range(warmup):
@@ -182,14 +214,24 @@ def cuda_time_ms(fn, reps, warmup=2):
     return statistics.median(times)
 
 
+_capture_stream = []
+
+
 def graph_time_ms(fn, reps):
     """Median over `reps` of the device time in ms of fn()'s launches:
-    captured once in a CUDA graph (after a warm-up) and replayed, so the
-    host's per-launch work does not enter the time."""
-    fn()
+    captured once in a CUDA graph and replayed, so the host's per-launch
+    work does not enter the time. The warm-up runs on the stream of the
+    capture, so the graph finds raster_dense's scratch for that stream
+    already made."""
+    if not _capture_stream:
+        _capture_stream.append(torch.cuda.Stream())
+    stream = _capture_stream[0]
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=stream):
         fn()
     ms = cuda_time_ms(graph.replay, reps)
     del graph
@@ -480,18 +522,52 @@ def dense_preset(device):
                 rot=rot, trans=trans, fl=fl, pp=pp, launches=launches)
 
 
-def bound(ops, nbytes):
-    ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+def bound(ops, nbytes, ops_per_s=PEAK_FP32_OPS):
+    ops_ms = ops / ops_per_s * 1e3
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
     return (max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms
             else "bytes", ops_ms, bytes_ms)
 
 
-def tile_times(name, device, card):
+def in_turns(fns, inputs, reps):
+    """Per-view ms of each function in `fns` (name -> function of one
+    view's arguments) over all `inputs` back to back, timed in turns a, b,
+    ..., ..., b, a: each turn takes `ms` (graph_time_ms) and `launched_ms`
+    (CUDA events around Python launching the views one by one), medians
+    of `reps`. Returns name -> {"ms": [two turns], "launched_ms": [...]}."""
+    order = list(fns) + list(reversed(list(fns)))
+    out = {name: {"ms": [], "launched_ms": []} for name in fns}
+    for name in order:
+        fn = fns[name]
+
+        def all_views():
+            return [fn(*a) for a in inputs]
+
+        out[name]["ms"].append(graph_time_ms(all_views, reps) / len(inputs))
+        out[name]["launched_ms"].append(cuda_time_ms(all_views, reps)
+                                        / len(inputs))
+    return out
+
+
+def turn_means(turns, keys=("ms", "launched_ms")):
+    return {k: statistics.mean(turns[k]) for k in keys}
+
+
+def against_entry(against, *turn_sets):
+    """The kernel line's "against" entry: per --against label, the means
+    of its turns (one dict of turns per measurement)."""
+    if not against:
+        return {}
+    return {"against": {label: dict(kv for t in turn_sets
+                                    for kv in t(label).items())
+                        for label in against}}
+
+
+def tile_times(name, device, card, against):
     """raster_tile and its plain version at scene `name`: ms per view (the
-    kernel's device time by graph_time_ms, and as launched view by view;
-    the plain version's by CUDA events around all views back to back),
-    with the bound of one view's work computed from this run's inputs."""
+    kernel's in turns with each --against copy's, by in_turns; the plain
+    version's by CUDA events around all views back to back), with the
+    bound of one view's work computed from this run's inputs."""
     from semantic_meshes_torch.rasterize import tile_kernel
 
     vertices, faces, cams = scene(name)
@@ -502,16 +578,14 @@ def tile_times(name, device, card):
     sum_counts = [int(a[2].sum()) for a in inputs]
     max_counts = [int(a[2].max()) for a in inputs]
 
-    def all_views(fn):
-        return lambda: [fn(*a) for a in inputs]
-
-    kernel_ms = graph_time_ms(all_views(tile_kernel.resolve_tiles_cuda),
-                              reps=20) / n_views
-    eager_ms = cuda_time_ms(all_views(tile_kernel.resolve_tiles_cuda),
-                            reps=20) / n_views
-    plain_ms = cuda_time_ms(all_views(tile_kernel.resolve_tiles_plain),
-                            reps=5) / n_views
-    # the mean view's candidate tests at the fp32 peak, against the bytes
+    fns = {**{label: a.tile for label, a in against.items()},
+           "current": tile_kernel.resolve_tiles_cuda}
+    turns = in_turns(fns, inputs, reps=20)
+    times = turn_means(turns["current"])
+    plain_ms = cuda_time_ms(
+        lambda: [tile_kernel.resolve_tiles_plain(*a) for a in inputs],
+        reps=5) / n_views
+    # the mean view's candidate tests at the fp32 rate, against the bytes
     # it must move: the counts, the sum(counts) candidate ids the tiles
     # hold, one read of each table row those ids name, and one write of
     # the (H, W) depth + id images
@@ -529,63 +603,17 @@ def tile_times(name, device, card):
                                                  statistics.mean(view_bytes))
     phase(
         f"phase 5 [{card}]: {name} ({n_views} views {width}x{height}), per "
-        f"view: raster_tile {kernel_ms:.6f} ms ({eager_ms:.6f} ms launched "
-        f"view by view from Python), plain {plain_ms:.6f} ms; "
-        f"sum(counts) per view {sum_counts} (mean {mean_counts}), heaviest "
-        f"tile per view {max_counts}, bound {bound_ms:.6f} ms ({bound_by}: "
-        f"ops {ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms)"
+        f"view: raster_tile {times['ms']:.6f} ms (graph replays), "
+        f"{times['launched_ms']:.6f} ms launched view by view; turns "
+        f"{turns}; plain {plain_ms:.6f} ms; sum(counts) per view "
+        f"{sum_counts} (mean {mean_counts}), heaviest tile per view "
+        f"{max_counts}, bound {bound_ms:.6f} ms ({bound_by}: ops "
+        f"{ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms)"
     )
-    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by)
-
-
-def start_baseline_build():
-    """Start nvcc on BASELINE_DENSE (same flags as the kernels) when that
-    source is present: (process, library path), or None."""
-    from semantic_meshes_torch import _build
-
-    src = os.path.join(HERE, BASELINE_DENSE)
-    if not os.path.exists(src):
-        return None
-    out = _build.BUILD_DIR / "libraster_dense_baseline.so"
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    proc = subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-o",
-                             str(out), src], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, out
-
-
-def baseline_dense_kernel(started):
-    """The baseline raster_dense built by start_baseline_build, as a
-    function of resolve_dense's arguments returning (depth, ids); None
-    when there is no baseline source."""
-    if started is None:
-        return None
-    proc, out = started
-    log = proc.communicate(timeout=600)[0]
-    if proc.returncode != 0:
-        raise RuntimeError(f"baseline raster_dense build failed:\n{log}")
-    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn = ctypes.CDLL(str(out)).sm_raster_dense
-    fn.argtypes = (P, P, P, P, P, P, I, I, I, I, I, F, P)
-    fn.restype = ctypes.c_int
-
-    def run(table, sorted_ids, starts, n_global, key, y_offset, nbx, height,
-            width):
-        z = torch.empty((height, width), dtype=torch.float32,
-                        device=table.device)
-        ids = torch.empty((height, width), dtype=torch.int32,
-                          device=table.device)
-        err = fn(table.data_ptr(), sorted_ids.data_ptr(), starts.data_ptr(),
-                 0 if key is None else key.data_ptr(), z.data_ptr(),
-                 ids.data_ptr(),
-                 starts.numel() - 2, int(n_global), nbx, height, width,
-                 float(y_offset), torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"baseline raster_dense: CUDA error {err}")
-        return z, ids
-
-    return run
+    return dict(times, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by,
+                **against_entry(against,
+                                lambda k: turn_means(turns[k])))
 
 
 def heaviest_alone(args):
@@ -603,25 +631,12 @@ def heaviest_alone(args):
     return (table, ids.contiguous(), new.to(torch.int32), *rest)
 
 
-def in_turns(fns, inputs, reps):
-    """Per-view device ms of each function in `fns` (name -> function of
-    the resolve_dense arguments) over all `inputs` back to back, timed in
-    turns a, b, ..., ..., b, a (graph_time_ms, median of `reps` each
-    time); returns name -> list of the two timings."""
-    order = list(fns) + list(reversed(list(fns)))
-    out = {name: [] for name in fns}
-    for name in order:
-        fn = fns[name]
-        out[name].append(graph_time_ms(lambda: [fn(*a) for a in inputs],
-                                       reps=reps) / len(inputs))
-    return out
-
-
-def dense_times(ctx, device, card, baseline):
+def dense_times(ctx, device, card, against):
     """Per-view pieces of the dense path at `scannet`: setup + classify +
     binning + table, the micro path, raster_dense (dense_kernel_row, and
     its plain version), fusion, and the routing cost model's coefficients
-    these times give. Returns the kernel's row."""
+    these times give, each as launched from Python. Returns the kernel's
+    row."""
     from semantic_meshes_torch import fusion
     from semantic_meshes_torch import rasterize as rast
     from semantic_meshes_torch.rasterize import (dense, dense_kernel,
@@ -668,8 +683,7 @@ def dense_times(ctx, device, card, baseline):
         inputs.append((table, sorted_ids, starts, dense.N_GLOBAL, key, 0.0,
                        dense._cdiv(width, dense.TILE_W), height, width))
 
-    kernel = dense_kernel_row("scannet", inputs, baseline, card)
-    kernel_ms = kernel["ms"]
+    kernel = dense_kernel_row("scannet", inputs, against, card)
     plain_ms = cuda_time_ms(lambda: [dense_kernel.resolve_dense_plain(*a)
                                      for a in inputs], reps=3) / n_views
     ids = [dense_kernel.resolve_dense_cuda(*a)[1] for a in inputs]
@@ -679,7 +693,8 @@ def dense_times(ctx, device, card, baseline):
                  for k in range(n_views)],
         reps=10) / n_views
     frag_rows = micro_max * micro_max * micro_cap
-    coeffs = dict(alpha=kernel_ms * 1e6 / statistics.mean(kernel["pairs"]),
+    pairs = statistics.mean(kernel["pairs"])
+    coeffs = dict(alpha=kernel["launched_ms"] * 1e6 / pairs,
                   beta=micro_ms * 1e6 / frag_rows,
                   gamma=bin_ms * 1e6 / (dense.K_SPAN * T))
     phase(
@@ -687,45 +702,46 @@ def dense_times(ctx, device, card, baseline):
         f"triangles, budget {cap}), per view: setup {setup_ms:.6f} ms, "
         f"classify + sort binning + table {bin_ms:.6f} ms, micro path "
         f"{micro_ms:.6f} ms ({frag_rows} fragment rows), raster_dense "
-        f"{kernel_ms:.6f} ms, plain {plain_ms:.6f} ms, fusion (sum, "
-        f"{classes} classes) {fusion_ms:.6f} ms"
+        f"{kernel['launched_ms']:.6f} ms launched view by view "
+        f"({kernel['ms']:.6f} ms in graph replays), plain {plain_ms:.6f} "
+        f"ms, fusion (sum, {classes} classes) {fusion_ms:.6f} ms"
     )
     phase(
-        f"phase 5 [{card}]: routing cost model at scannet, ns: alpha "
-        f"(raster_dense per pair) {coeffs['alpha']:.6f}, beta (micro path "
-        f"per fragment row) {coeffs['beta']:.6f}, gamma (classify + binning "
-        f"per sort row) {coeffs['gamma']:.6f}; in use: alpha "
-        f"{dense.ROUTE_ALPHA}, beta {dense.ROUTE_BETA}, gamma "
-        f"{dense.ROUTE_GAMMA}"
+        f"phase 5 [{card}]: routing cost model at scannet, ns, each from "
+        f"times launched from Python: alpha (raster_dense per pair) "
+        f"{coeffs['alpha']:.6f} ({kernel['ms'] * 1e6 / pairs:.6f} from "
+        f"graph replays), beta (micro path per fragment row) "
+        f"{coeffs['beta']:.6f}, gamma (classify + binning per sort row) "
+        f"{coeffs['gamma']:.6f}; in use: alpha {dense.ROUTE_ALPHA}, beta "
+        f"{dense.ROUTE_BETA}, gamma {dense.ROUTE_GAMMA}"
     )
-    row = {k: kernel[k] for k in ("ms", "bound_ms", "bound_by",
-                                  "heaviest_tile_ms", "items_per_view",
-                                  "culled_share", "baseline_ms",
-                                  "baseline_heaviest_tile_ms")}
+    row = {k: v for k, v in kernel.items() if k != "pairs"}
     return dict(row, plain_ms=plain_ms)
 
 
-def dense_kernel_row(label, inputs, baseline, card):
+def dense_kernel_row(label, inputs, against, card):
     """raster_dense on every view of `inputs` (resolve_dense arguments):
-    ms per view, and on each view's heaviest tile alone, in turns with the
-    baseline kernel when there is one; the bound of the mean view from
-    this run's starts; work items and the culled share of (candidate,
-    warp) tests per view. Prints one line; returns the numbers."""
+    ms per view, and on each view's heaviest tile alone, in turns with
+    each --against copy; the bound of the mean view from this run's
+    inputs; work items and the culled share of (candidate, warp) tests per
+    view. Prints one line; returns the numbers."""
     from semantic_meshes_torch.rasterize import dense_kernel
 
-    fns = {"current": dense_kernel.resolve_dense_cuda}
-    if baseline is not None:
-        fns = {"baseline": baseline, **fns}
+    fns = {**{k: a.dense for k, a in against.items()},
+           "current": dense_kernel.resolve_dense_cuda}
     turns = in_turns(fns, inputs, reps=20)
     heavy = in_turns(fns, [heaviest_alone(a) for a in inputs], reps=20)
 
-    # bound of the mean view from this run's starts: every tile tests the
-    # first min(global, n_global) global ids and its own range, each at
-    # 2048 pixels x 12 flops; the bytes are one read of the starts, of the
-    # ids read (the global ids once, the own ranges once), of each table
-    # row they name and of the micro key image, and one write of the
-    # 8-byte-per-pixel image
-    tests, view_bytes, pairs, items, culled, heaviest = [], [], [], [], [], []
+    # The bound of the mean view. Operations: 12 at each of a warp's 256
+    # pixels for every (candidate, warp) test the kernel's cull leaves, as
+    # the kernel counts them in this run. Bytes: one read of the starts,
+    # of the ids read (the global ids once, the own ranges once), of each
+    # table row they name and of the micro key image, and one write of
+    # the 8-byte-per-pixel image. bound_every_pair_ms keeps the earlier count:
+    # every listed pair at all 2048 pixels of its tile at 67 TFLOP/s.
+    warp_pixels = dense_kernel.TILE_H * dense_kernel.TILE_W // \
+        dense_kernel.WARPS
+    tests, run, view_bytes, pairs, items, heaviest = [], [], [], [], [], []
     for args in inputs:
         table, sorted_ids, starts, n_global, key, _, _, height, width = args
         s = starts.long()
@@ -736,47 +752,48 @@ def dense_kernel_row(label, inputs, baseline, card):
         tests.append(B * g + own)
         pairs.append(int(s[B + 1] - s[0]))
         heaviest.append(int(own_b.max()))
-        items.append(int(torch.clamp(-(-(g + own_b) // dense_kernel.ITEM),
-                                     min=1).sum()))
-        _, _, work = dense_kernel.launch_dense(*args)
-        run = int(dense_kernel.tests_run(work, B))
-        culled.append(1 - run / (dense_kernel.WARPS * tests[-1])
-                      if tests[-1] else 0.0)
+        items.append(int(dense_kernel.work_items(starts, n_global).sum()))
+        tested = torch.zeros(1, dtype=torch.int64, device=table.device)
+        dense_kernel.resolve_dense_cuda(*args, tested=tested)
+        run.append(int(tested))
         rows = torch.cat([sorted_ids[int(s[B]):int(s[B]) + g],
                           sorted_ids[:int(s[B])]])
         view_bytes.append((B + 2) * 4 + (g + own) * 4
                           + int(torch.unique(rows).numel()) * 64
                           + (0 if key is None else key.numel() * 8)
                           + width * height * 8)
-    ops = statistics.mean(tests) * dense_kernel.TILE_H * \
-        dense_kernel.TILE_W * FLOPS_PER_TEST
-    bound_ms, bound_by, ops_ms, bytes_ms = bound(ops,
-                                                 statistics.mean(view_bytes))
+    culled = [1 - r / (dense_kernel.WARPS * t) if t else 0.0
+              for r, t in zip(run, tests)]
+    nbytes = statistics.mean(view_bytes)
+    bound_ms, bound_by, ops_ms, bytes_ms = bound(
+        statistics.mean(run) * warp_pixels * FLOPS_PER_TEST, nbytes)
+    every_ms = bound(statistics.mean(tests) * dense_kernel.TILE_H
+                     * dense_kernel.TILE_W * FLOPS_PER_TEST, nbytes,
+                     PEAK_FP32_FLOPS)[0]
     out = dict(
-        ms=statistics.mean(turns["current"]), bound_ms=bound_ms,
-        bound_by=bound_by,
-        heaviest_tile_ms=statistics.mean(heavy["current"]),
+        turn_means(turns["current"]), bound_ms=bound_ms, bound_by=bound_by,
+        bound_every_pair_ms=every_ms,
+        heaviest_tile_ms=statistics.mean(heavy["current"]["ms"]),
         items_per_view=items, culled_share=statistics.mean(culled),
-        baseline_ms=(statistics.mean(turns["baseline"]) if baseline
-                     else None),
-        baseline_heaviest_tile_ms=(statistics.mean(heavy["baseline"])
-                                   if baseline else None),
+        **against_entry(against, lambda k: turn_means(turns[k]),
+                        lambda k: {"heaviest_tile_ms":
+                                   statistics.mean(heavy[k]["ms"])}),
         pairs=pairs)
-    base = ("; baseline kernel (in turns baseline, current, current, "
-            f"baseline): {turns['baseline']} ms, heaviest tile alone "
-            f"{heavy['baseline']} ms" if baseline else
-            f"; baseline kernel: not measured (no {BASELINE_DENSE})")
     phase(
         f"phase 5 [{card}]: raster_dense at {label} ({len(inputs)} views), "
-        f"per view: {out['ms']:.6f} ms (turns {turns['current']}), heaviest "
-        f"tile alone {out['heaviest_tile_ms']:.6f} ms (turns "
-        f"{heavy['current']}); bound {bound_ms:.6f} ms ({bound_by}: ops "
-        f"{ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms, every pair at every "
-        f"pixel), culled share of (candidate, warp) tests "
-        f"{out['culled_share']:.6f} (per view "
-        f"{[round(c, 6) for c in culled]}); pairs per view {pairs}, "
-        f"candidate tests per view {tests}, heaviest own range per view "
-        f"{heaviest}, work items per view {items}{base}"
+        f"per view: {out['ms']:.6f} ms (graph replays), "
+        f"{out['launched_ms']:.6f} ms launched view by view; turns {turns}; "
+        f"heaviest tile alone {out['heaviest_tile_ms']:.6f} ms (turns "
+        f"{ {k: v['ms'] for k, v in heavy.items()} }); bound "
+        f"{bound_ms:.6f} ms ({bound_by}: ops {ops_ms:.6f} ms for the "
+        f"(candidate, warp) tests run at {PEAK_FP32_OPS / 1e12} T "
+        f"operations/s, bytes {bytes_ms:.6f} ms), every pair at every "
+        f"pixel at 67 TFLOP/s {every_ms:.6f} ms; culled share of "
+        f"(candidate, warp) tests {out['culled_share']:.6f} (per view "
+        f"{[round(c, 6) for c in culled]}); tests run per view {run}, "
+        f"pairs per view {pairs}, candidate tests per view {tests}, "
+        f"heaviest own range per view {heaviest}, work items per view "
+        f"{items}"
     )
     return out
 
@@ -878,7 +895,19 @@ def large_times(ctx, device, card):
           f"{setup_ms:.6f} ms, fusion (sum) {fusion_ms:.6f} ms")
 
 
+def parse_args():
+    parser = argparse.ArgumentParser(
+        description="Chip smoke run of semantic_meshes_torch on one card.")
+    parser.add_argument(
+        "--against", action="append", default=[], metavar="DIR",
+        help="a checkout of an earlier commit (its semantic_meshes_torch/ "
+             "at least) whose kernels are timed in turns with this one's; "
+             "labelled by the directory's name; repeatable")
+    return parser.parse_args()
+
+
 def main():
+    args = parse_args()
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py: torch.cuda.is_available() is False; "
                  "this run needs a CUDA card")
@@ -894,14 +923,24 @@ def main():
     card = card_line()
     phase(f"phase 1: card: {card}")
 
-    baseline_build = start_baseline_build()
-    _build.build("raster_tile", "raster_dense")
-    baseline = baseline_dense_kernel(baseline_build)
-    for name in ("raster_tile", "raster_dense"):
-        report = [ln.strip() for ln in _build.build_log(name).splitlines()
-                  if "ptxas info" in ln and ("Used" in ln
-                                             or "Compiling" in ln)]
-        phase(f"phase 2: built {name}: " + " | ".join(report))
+    against = {}
+    for i, path in enumerate(args.against):
+        label = os.path.basename(os.path.normpath(path))
+        if label in against or label == "current":
+            sys.exit(f"chip_smoke.py: two --against directories named "
+                     f"{label!r}")
+        against[label] = load_against(path, i)
+    builds = {"": _build, **{k: a.build for k, a in against.items()}}
+    with ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: b.build("raster_tile", "raster_dense"),
+                      builds.values()))
+    for label, build in builds.items():
+        for name in ("raster_tile", "raster_dense"):
+            report = [ln.strip() for ln in build.build_log(name).splitlines()
+                      if "ptxas info" in ln and ("Used" in ln
+                                                 or "Compiling" in ln)]
+            phase(f"phase 2: built {name}{' of ' + label if label else ''}"
+                  ": " + " | ".join(report))
 
     tile_err = tile_vs_plain(device)
     dense_err = dense_vs_plain(device)
@@ -911,13 +950,13 @@ def main():
         scannet = main_path("scannet", device, workdir)
     dense_ctx = dense_preset(device)
 
-    tile_times("default", device, card)
-    tile_row = tile_times("large", device, card)
-    dense_row = dense_times(scannet, device, card, baseline)
+    tile_times("default", device, card, against)
+    tile_row = tile_times("large", device, card, against)
+    dense_row = dense_times(scannet, device, card, against)
     dense_kernel_row("default forced dense",
                      [a for a, _ in dense_inputs("default", device,
                                                  "dense")[1]],
-                     baseline, card)
+                     against, card)
     large_times(large, device, card)
     batch_throughput("large", large, device, card)
     batch_throughput("scannet", scannet, device, card)

@@ -55,7 +55,10 @@
 //    then thread 0's __threadfence around the atomic) reads the keys back,
 //    maps the position to its table row's id (by position, not id: a
 //    global id precedes a smaller own id), and runs the epilogue. Output
-//    bits do not depend on scheduling.
+//    bits do not depend on scheduling. The scratch (keys and counters) is
+//    zero at launch, and the last arrival zeroes its tile's keys and
+//    counter again after reading them, so every launch leaves it zero: the
+//    wrapper keeps one per stream and zeroes it only when it allocates it.
 // 3. Double buffer. While item i is tested, the 64-byte rows of item i+1
 //    are in flight into the second row buffer (cp.async.cg, 16 bytes, four
 //    per row, addressed through the ids) and the ids of item i+2 into the
@@ -97,12 +100,13 @@
 //
 // What bounds it on the H100. The bound chip_smoke.py reports is fp32 ALU
 // work: per candidate and pixel the four affine forms cost 4 multiplies
-// and 8 adds, (global + own) x 2048 pixels x 12 flops per tile against
-// 67 TFLOP/s of non-tensor fp32. It counts every pair at every pixel; the
-// cull skips most of them, so the kernel may run below it. The bytes are
-// one read of the ids, of each table row they name and of the micro key
-// image, and one write of the 8-byte-per-pixel image at 3.35 TB/s, plus
-// the per-pixel keys of tiles of several items. What is left: the heavy
+// and 8 adds, 12 operations at each of the 256 pixels of every (candidate,
+// warp) test the cull leaves (the launch counts them when given `tested`),
+// against 33.5 T un-fused fp32 operations per second (the 67 TFLOP/s
+// peak counts an FMA as two, and -fmad=false rules FMA out). The bytes
+// are one read of the ids, of each table row they name and of the micro
+// key image, and one write of the 8-byte-per-pixel image at 3.35 TB/s,
+// plus the per-pixel keys of tiles of several items. What is left: the heavy
 // tiles' surviving tests (a warp tests a survivor at all 8 of a thread's
 // pixels, though a sliver covers one or two of its rows), a block's wait
 // for its busiest warp, and per item a pass through the pipeline (an
@@ -319,16 +323,17 @@ __device__ __forceinline__ void store_pixels(
   }
 }
 
-// work: num_tiles * 2048 per-pixel keys, then the count of (candidate,
-// warp) tests run and num_tiles arrival counters (uint32); all zero at
-// launch.
+// work: num_tiles * 2048 per-pixel keys, then num_tiles arrival counters
+// (uint32); all zero at launch, and left zero. tested: null, or a count
+// the (candidate, warp) tests run are added to.
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 raster_dense_kernel(const float4* __restrict__ table,
                     const int* __restrict__ sorted_ids,
                     const int* __restrict__ starts,
                     const long long* __restrict__ micro_key,
                     float* __restrict__ zout, int* __restrict__ iout,
-                    unsigned long long* __restrict__ work, int num_tiles,
+                    unsigned long long* __restrict__ work,
+                    unsigned long long* __restrict__ tested, int num_tiles,
                     int n_global, int nbx, int height, int width,
                     float y_offset) {
   __shared__ float4 rows[2][kItem * kVecPerRow];
@@ -339,9 +344,8 @@ raster_dense_kernel(const float4* __restrict__ table,
   __shared__ int last_arrival;
 
   unsigned long long* keys = work;
-  unsigned long long* tested =
-      work + static_cast<size_t>(num_tiles) * kTilePixels;
-  unsigned* arrived = reinterpret_cast<unsigned*>(tested + 1);
+  unsigned* arrived = reinterpret_cast<unsigned*>(
+      work + static_cast<size_t>(num_tiles) * kTilePixels);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -539,6 +543,13 @@ raster_dense_kernel(const float4* __restrict__ table,
         for (int k = 0; k < kRowsPerThread; ++k) {
           key[k] = __ldcg(tkeys + (row0 + k * kRowStep) * kTileW + col);
         }
+        // every item of the tile has arrived: leave its scratch zero for
+        // the next launch
+#pragma unroll
+        for (int k = 0; k < kRowsPerThread; ++k) {
+          __stcg(tkeys + (row0 + k * kRowStep) * kTileW + col, 0ull);
+        }
+        if (threadIdx.x == 0) arrived[it.tile] = 0u;
         int row[kRowsPerThread];
 #pragma unroll
         for (int k = 0; k < kRowsPerThread; ++k) {
@@ -563,7 +574,7 @@ raster_dense_kernel(const float4* __restrict__ table,
     d = (d + 1) % 3;
     s ^= 1;
   }
-  if (lane == 0 && tests != 0) atomicAdd(tested, tests);
+  if (tested != nullptr && lane == 0 && tests != 0) atomicAdd(tested, tests);
 }
 
 int grid_cache[kMaxDevices];  // persistent grid size per device, 0: unread
@@ -572,15 +583,16 @@ int grid_cache[kMaxDevices];  // persistent grid size per device, 0: unread
 
 // table (T+1, 16) f32; sorted_ids i32 (ids of table rows, grouped by tile);
 // starts (num_tiles + 2,) i32; micro_key (height, width) i64 or null; work
-// (num_tiles * 2048 + 1 + ceil(num_tiles / 2),) i64, zero; outputs z f32
+// (num_tiles * 2048 + ceil(num_tiles / 2),) i64 or longer, zero (and left
+// zero); tested: null or one i64 the tests run are added to; outputs z f32
 // and ids i32, both (height, width) row-major. Returns the first CUDA
 // error of the occupancy query or the launch (0 if none).
 extern "C" int sm_raster_dense(const void* table, const void* sorted_ids,
                                const void* starts, const void* micro_key,
                                void* zout, void* iout, void* work,
-                               int num_tiles, int n_global, int nbx,
-                               int height, int width, float y_offset,
-                               void* stream) {
+                               void* tested, int num_tiles, int n_global,
+                               int nbx, int height, int width,
+                               float y_offset, void* stream) {
   if (num_tiles > 0) {
     int dev = 0;
     cudaError_t err = cudaGetDevice(&dev);
@@ -602,7 +614,8 @@ extern "C" int sm_raster_dense(const void* table, const void* sorted_ids,
         static_cast<const int*>(starts),
         static_cast<const long long*>(micro_key), static_cast<float*>(zout),
         static_cast<int*>(iout), static_cast<unsigned long long*>(work),
-        num_tiles, n_global, nbx, height, width, y_offset);
+        static_cast<unsigned long long*>(tested), num_tiles, n_global, nbx,
+        height, width, y_offset);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -52,12 +52,13 @@ BUDGET_MARGIN = 2
 # (raster_dense's test of a whole tile), beta per fragment row (the micro
 # path, compaction included), gamma per binning-sort row (classify, sort
 # binning and table; paid only while any pair exists). Each is a per-view
-# time over its count, from chip_smoke.py's routing line at bench.py's
-# `scannet` preset (micro_max 2) on an NVIDIA H100 80GB HBM3 with a 700 W
-# power limit (PERF.md): alpha 0.936898 for the split, culled kernel
-# (8.354779 for the kernel of one CTA per tile), beta 17.069335, gamma
-# 3.771932.
-ROUTE_ALPHA = 0.937
+# time over its count, all three timed alike (CUDA events around the views
+# launched one by one from Python), from chip_smoke.py's routing line at
+# bench.py's `scannet` preset (micro_max 2) on an NVIDIA H100 80GB HBM3
+# with a 700 W power limit (PERF.md): alpha 0.949726 for the split, culled
+# kernel (8.354779 for the kernel of one CTA per tile), beta 17.069335,
+# gamma 3.771932.
+ROUTE_ALPHA = 0.950
 ROUTE_BETA = 17.1
 ROUTE_GAMMA = 3.77
 

@@ -16,9 +16,8 @@ one packed int64 key per pixel, (z bits << 32) | id, +inf background.
 `resolve_dense` is the one entry: for CUDA tensors it launches the kernel
 (or raises), for CPU tensors it runs `resolve_dense_plain`. There is no
 fallback from one to the other. The kernel cuts each tile's list into work
-items of ITEM candidates and merges a tile's items through a zeroed work
-buffer the wrapper allocates (`launch_dense` returns it; `tests_run` reads
-how many (candidate, warp) tests its cull left).
+items of ITEM candidates (`work_items`) and merges a tile's items through a
+scratch that every launch leaves zero, kept per stream (`_scratch`).
 """
 
 from __future__ import annotations
@@ -56,7 +55,8 @@ def _kernel():
     from .. import _build
 
     fn = _build.load("raster_dense").sm_raster_dense
-    fn.argtypes = (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
+    fn.argtypes = (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                   _P)
     fn.restype = ctypes.c_int
     return fn
 
@@ -115,31 +115,55 @@ def resolve_dense_plain(table, sorted_ids, starts, n_global, micro_key,
     return z, ids
 
 
+def work_items(starts, n_global):
+    """(B,) work items the kernel cuts each tile's list of G global and its
+    own candidates into: max(1, ceil((G + own) / ITEM))."""
+    s = starts.long()
+    B = s.numel() - 2
+    g = torch.clamp(s[B + 1] - s[B], 0, int(n_global))
+    return torch.clamp(-(-(g + s[1:B + 1] - s[:B]) // ITEM), min=1)
+
+
 def work_size(num_tiles):
-    """int64 elements of the kernel's zeroed work buffer: a per-pixel key
-    per pixel of every tile, the count of (candidate, warp) tests run, and
-    one uint32 arrival counter per tile."""
-    return num_tiles * TILE_H * TILE_W + 1 + -(-num_tiles // 2)
+    """int64 elements of the kernel's scratch: a per-pixel key per pixel of
+    every tile and one uint32 arrival counter per tile."""
+    return num_tiles * TILE_H * TILE_W + -(-num_tiles // 2)
 
 
-def tests_run(work, num_tiles):
-    """(candidate, warp) tests the launch that filled `work` ran (a 0-dim
-    device tensor); of WARPS x every candidate of every tile's list, the
-    rest were culled."""
-    return work[num_tiles * TILE_H * TILE_W]
+# the kernel's scratch per (device, stream): zero between launches, since
+# every launch leaves it so; launches on one stream run in order, so they
+# may share it. A CUDA graph captured on a stream holds that stream's
+# scratch: replay it where no launch on that stream runs at the same time.
+_scratch = {}
 
 
-def launch_dense(table, sorted_ids, starts, n_global, micro_key, y_offset,
-                 nbx, height, width):
+def _work(device, num_tiles):
+    need = work_size(num_tiles)
+    stream = torch.cuda.current_stream(device)
+    key = (device.index, stream.cuda_stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.zeros(need, dtype=torch.int64, device=device)
+        if not torch.cuda.is_current_stream_capturing():
+            _scratch[key] = buf  # else the graph being captured owns it
+    return buf
+
+
+def resolve_dense_cuda(table, sorted_ids, starts, n_global, micro_key,
+                       y_offset, nbx, height, width, tested=None):
     """Launch csrc/raster_dense.cu on the current stream (no sync). The ids
-    in `sorted_ids` must index rows of `table`. Returns (depth, ids, work):
-    `work` is the kernel's scratch (see tests_run)."""
+    in `sorted_ids` must index rows of `table`. `tested`, None or a zeroed
+    (1,) int64 CUDA tensor, gets the (candidate, warp) tests the kernel's
+    cull left added to it (of WARPS per candidate of every tile's list).
+    Returns (depth, ids)."""
     global launches
     checks = [("table", table, torch.float32),
               ("sorted_ids", sorted_ids, torch.int32),
               ("starts", starts, torch.int32)]
     if micro_key is not None:
         checks.append(("micro_key", micro_key, torch.int64))
+    if tested is not None:
+        checks.append(("tested", tested, torch.int64))
     for name, t, dtype in checks:
         if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
@@ -166,8 +190,8 @@ def launch_dense(table, sorted_ids, starts, n_global, micro_key, y_offset,
     kernel = _kernel()
     z = torch.empty((height, width), dtype=torch.float32, device=table.device)
     ids = torch.empty((height, width), dtype=torch.int32, device=table.device)
-    work = torch.zeros(work_size(B), dtype=torch.int64, device=table.device)
     with torch.cuda.device(table.device):
+        work = _work(table.device, B)
         stream = torch.cuda.current_stream().cuda_stream
         err = kernel(
             ctypes.c_void_p(table.data_ptr()),
@@ -177,6 +201,7 @@ def launch_dense(table, sorted_ids, starts, n_global, micro_key, y_offset,
             ctypes.c_void_p(z.data_ptr()),
             ctypes.c_void_p(ids.data_ptr()),
             ctypes.c_void_p(work.data_ptr()),
+            ctypes.c_void_p(0 if tested is None else tested.data_ptr()),
             ctypes.c_int(B), ctypes.c_int(int(n_global)), ctypes.c_int(nbx),
             ctypes.c_int(height), ctypes.c_int(width),
             ctypes.c_float(float(y_offset)),
@@ -185,15 +210,6 @@ def launch_dense(table, sorted_ids, starts, n_global, micro_key, y_offset,
     if err != 0:
         raise RuntimeError(f"raster_dense launch failed: CUDA error {err}")
     launches += 1
-    return z, ids, work
-
-
-def resolve_dense_cuda(table, sorted_ids, starts, n_global, micro_key,
-                       y_offset, nbx, height, width):
-    """Launch csrc/raster_dense.cu on the current stream (no sync). The ids
-    in `sorted_ids` must index rows of `table`."""
-    z, ids, _ = launch_dense(table, sorted_ids, starts, n_global, micro_key,
-                             y_offset, nbx, height, width)
     return z, ids
 
 

@@ -167,10 +167,22 @@ def test_kernel_constants_match_the_source():
     assert const("kThreads") // 32 == dense_kernel.WARPS
     assert const("kTileH") == TILE_H and const("kTileW") == TILE_W
     assert const("kWarpCols") == 16  # the rectangle the cull test below uses
-    # the work buffer: keys, the tests counter, one uint32 per tile
+    # the scratch: a uint64 key per pixel of every tile, a uint32 per tile
     for B in (1, 2, 671):
-        assert dense_kernel.work_size(B) * 8 >= (B * TILE_H * TILE_W + 1) * 8 \
+        assert dense_kernel.work_size(B) * 8 >= B * TILE_H * TILE_W * 8 \
             + B * 4
+
+
+@pytest.mark.parametrize("name", testing.DENSE_SCENES)
+def test_work_items_cut_each_list(name):
+    """work_items: ceil(len / ITEM) items per tile's list, one for an empty
+    list, as the kernel's block scan counts them."""
+    _, sorted_ids, starts, n_global, *_ = testing.dense_resolve_scene(name)
+    _, counts = dense_kernel.candidates(sorted_ids, starts, n_global, -1)
+    want = [max(1, -(-int(n) // dense_kernel.ITEM)) for n in counts]
+    got = dense_kernel.work_items(starts, n_global)
+    assert got.tolist() == want
+    assert int(got.max()) > 1  # every scene splits a tile
 
 
 # ----------------------------------------------------------------- the cull

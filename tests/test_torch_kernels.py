@@ -162,13 +162,18 @@ def test_raster_dense_split_ties_and_cull(cuda, name):
     boundary and between a global and an own candidate (the earlier in
     the tile's list wins), n_global = 0 and global buckets over ITEM,
     empty tiles, slivers and far-off-screen vertices. Bit-equal to the
-    plain version, and the same bits on a second run."""
+    plain version, the same bits on a second run, and the scratch left
+    zero for the next launch."""
     args = testing.dense_resolve_scene(name, cuda)
     before = dense_kernel.launches
-    zk, ik, work = dense_kernel.launch_dense(*args)
+    tested = torch.zeros(1, dtype=torch.int64, device=cuda)
+    zk, ik = dense_kernel.resolve_dense_cuda(*args, tested=tested)
     z2, i2 = dense_kernel.resolve_dense(*args)
     torch.cuda.synchronize()
     assert dense_kernel.launches == before + 2
+    work = dense_kernel._scratch[(cuda.index,
+                                  torch.cuda.current_stream(cuda).cuda_stream)]
+    assert not bool(work.any())
     zp, ip = dense_kernel.resolve_dense_plain(*args)
     assert torch.equal(ik, ip)
     assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
@@ -179,8 +184,8 @@ def test_raster_dense_split_ties_and_cull(cuda, name):
     B = starts.numel() - 2
     g = max(min(int(starts[-1] - starts[-2]), args[3]), 0)
     listed = B * g + int(starts[-2])
-    run = int(dense_kernel.tests_run(work, B))
-    assert 0 < run <= dense_kernel.WARPS * listed
+    assert int(dense_kernel.work_items(args[2], args[3]).sum()) >= B
+    assert 0 < int(tested) <= dense_kernel.WARPS * listed
     if name == "tie_items":  # the first of the three copies wins
         K = dense_kernel.ITEM
         assert int((ik == 3).sum()) > 0

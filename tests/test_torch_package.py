@@ -49,8 +49,7 @@ def _imports(path):
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "tune_raster_dense.py"],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
     ids=lambda p: str(p.relative_to(ROOT)),
 )
 def test_no_jax_import_in_source(path):
