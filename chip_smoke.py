@@ -12,7 +12,8 @@ card), in phases; each phase prints a line and raises on failure:
    started together, those of --against too) and their -Xptxas -v
    register / shared-memory reports;
 3. every kernel against its plain PyTorch version on the card: raster_tile
-   on every view of `default` and `large`, raster_dense on every view of
+   on every view of `default` and `large` and on the hand-binned scenes of
+   testing.TILE_SCENES, raster_dense on every view of
    `scannet` (twice, bit-identical) and of `default` forced through the
    dense rasterizer (ids equal, depths bit-equal, overflow 0), at the
    budgets the main path probes, and on the hand-binned scenes of
@@ -35,13 +36,14 @@ card), in phases; each phase prints a line and raises on failure:
    per view both as `ms`, from replays of a CUDA graph of its launches
    (the device's own time), and as `launched_ms`, with Python launching
    the views one by one as the main path does; its plain version; the
-   bound of its work from this run's inputs; raster_dense at `scannet`
-   and forced-dense `default` also on each view's heaviest tile alone,
-   with its work items and the share of (candidate, warp) tests its cull
-   skipped; the pieces of a dense view at `scannet`, the routing cost
-   model's coefficients they give, one fuse_views_planned batch per
-   preset as `rasterize_fuse_throughput`, and one traced batch per preset
-   (idle share, top device kernels).
+   bound of its work from this run's inputs (the (candidate, warp) tests
+   its cull left, as the kernel counts them, against the bytes); each
+   kernel also on each view's heaviest tile alone and with the share of
+   (candidate, warp) tests its cull skipped; raster_tile with every tile
+   empty, raster_dense with its work items; the pieces of a dense view at
+   `scannet`, the routing cost model's coefficients they give, one
+   fuse_views_planned batch per preset as `rasterize_fuse_throughput`,
+   and one traced batch per preset (idle share, top device kernels).
 
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
@@ -255,7 +257,11 @@ def assert_same_image(name, k, zk, ik, zp, ip):
 
 
 def tile_vs_plain(device):
-    """Phase 3, raster_tile at `default` and `large`."""
+    """Phase 3, raster_tile at `default` and `large`, and on the hand-binned
+    scenes of testing.TILE_SCENES (a tile at the 256 cap, slivers along
+    the warps' rectangles, exact ties inside one rectangle and across two,
+    ragged edges, a row band, an empty view)."""
+    from semantic_meshes_torch import testing
     from semantic_meshes_torch.rasterize import tile_kernel
 
     max_err = 0.0
@@ -271,6 +277,14 @@ def tile_vs_plain(device):
                                                      ip))
         phase(f"phase 3: raster_tile == plain at {name}: {len(cams)} views, "
               "ids equal, depths bit-equal")
+    for name in testing.TILE_SCENES:
+        args = testing.tile_resolve_scene(name, device)
+        zk, ik = tile_kernel.resolve_tiles_cuda(*args)
+        zp, ip = tile_kernel.resolve_tiles_plain(*args)
+        torch.cuda.synchronize()
+        max_err = max(max_err, assert_same_image(name, 0, zk, ik, zp, ip))
+    phase(f"phase 3: raster_tile == plain on the hand-binned scenes "
+          f"{list(testing.TILE_SCENES)}: ids equal, depths bit-equal")
     return max_err
 
 
@@ -563,9 +577,49 @@ def against_entry(against, *turn_sets):
                         for label in against}}
 
 
+def tile_counts_only(args, keep):
+    """resolve_tiles arguments of one view with every tile's count set to
+    0, except the heaviest tile's when `keep`."""
+    table, cand, counts, *rest = args
+    new = torch.zeros_like(counts)
+    if keep:
+        b = int(counts.argmax())
+        new[b] = counts[b]
+    return (table, cand, new, *rest)
+
+
+def rect_meets(args, rect=16):
+    """Per view, from the table: the (candidate, rect x rect rectangle)
+    pairs whose three edge forms pass the corner test at the rectangle
+    (the kernel's cull without its depth test), and the most of them any
+    one rectangle has. Forms are rounded op by op, as the kernels do."""
+    table, cand, counts, y_offset, nbx, _, _ = args
+    B, N = cand.shape
+    rows = table[cand.long()]  # (B, N, 16)
+    live = torch.arange(N, device=cand.device)[None, :] < counts[:, None]
+    b = torch.arange(B, device=cand.device)
+    r = torch.arange(32 * 128 // (rect * rect), device=cand.device)
+    x0 = ((b % nbx) * 128)[:, None] + (r % (128 // rect)) * rect
+    y0 = ((b // nbx) * 32)[:, None] + (r // (128 // rect)) * rect
+    pxl = x0.to(torch.float32) + 0.5
+    pxh = (x0 + rect - 1).to(torch.float32) + 0.5
+    pyl = (y0.to(torch.float32) + 0.5) + y_offset
+    pyh = ((y0 + rect - 1).to(torch.float32) + 0.5) + y_offset
+    meets = live[:, :, None]
+    for e in range(3):
+        a = rows[:, :, 3 * e, None]
+        bb = rows[:, :, 3 * e + 1, None]
+        c = rows[:, :, 3 * e + 2, None]
+        px = torch.where(a >= 0, pxh[:, None, :], pxl[:, None, :])
+        py = torch.where(bb >= 0, pyh[:, None, :], pyl[:, None, :])
+        meets = meets & ~((a * px + bb * py) + c < 0)  # (B, N, R)
+    return int(meets.sum()), int(meets.sum(1).max())
+
+
 def tile_times(name, device, card, against):
     """raster_tile and its plain version at scene `name`: ms per view (the
-    kernel's in turns with each --against copy's, by in_turns; the plain
+    kernel's in turns with each --against copy's, by in_turns, on the
+    view, on its heaviest tile alone and with every tile empty; the plain
     version's by CUDA events around all views back to back), with the
     bound of one view's work computed from this run's inputs."""
     from semantic_meshes_torch.rasterize import tile_kernel
@@ -577,43 +631,77 @@ def tile_times(name, device, card, against):
     inputs = [view_inputs(fv, cam, device)[0] for cam in cams]
     sum_counts = [int(a[2].sum()) for a in inputs]
     max_counts = [int(a[2].max()) for a in inputs]
+    meets = [rect_meets(a) for a in inputs]
 
     fns = {**{label: a.tile for label, a in against.items()},
            "current": tile_kernel.resolve_tiles_cuda}
     turns = in_turns(fns, inputs, reps=20)
+    heavy = in_turns(fns, [tile_counts_only(a, True) for a in inputs],
+                     reps=20)
+    empty = in_turns(fns, [tile_counts_only(a, False) for a in inputs],
+                     reps=20)
     times = turn_means(turns["current"])
+    heaviest_ms = statistics.mean(heavy["current"]["ms"])
+    empty_ms = statistics.mean(empty["current"]["ms"])
     plain_ms = cuda_time_ms(
         lambda: [tile_kernel.resolve_tiles_plain(*a) for a in inputs],
         reps=5) / n_views
-    # the mean view's candidate tests at the fp32 rate, against the bytes
-    # it must move: the counts, the sum(counts) candidate ids the tiles
-    # hold, one read of each table row those ids name, and one write of
-    # the (H, W) depth + id images
-    mean_counts = statistics.mean(sum_counts)
-    ops = mean_counts * tile_kernel.TILE_H * tile_kernel.TILE_W * \
-        FLOPS_PER_TEST
-    view_bytes = []
-    for table, cand, counts in (a[:3] for a in inputs):
+    # The bound of the mean view. Operations: 12 at each of a warp's 256
+    # pixels for every (candidate, warp) test the kernel's cull leaves, as
+    # the kernel counts them in this run. Bytes: the counts, the listed
+    # candidate ids, one read of each table row they name, and one write
+    # of the (H, W) depth + id images. bound_every_pair_ms keeps the
+    # earlier count: every candidate at all 4096 pixels of its tile.
+    run, view_bytes = [], []
+    for a in inputs:
+        table, cand, counts = a[:3]
+        tested = torch.zeros(1, dtype=torch.int64, device=device)
+        tile_kernel.resolve_tiles_cuda(*a, tested=tested)
+        run.append(int(tested))
         slot = torch.arange(cand.shape[1], device=cand.device)
         live = slot < counts[:, None]
         rows = int(torch.unique(cand[live]).numel())
         view_bytes.append(counts.numel() * 4 + int(counts.sum()) * 4
                           + rows * table.shape[1] * 4 + width * height * 8)
-    bound_ms, bound_by, ops_ms, bytes_ms = bound(ops,
-                                                 statistics.mean(view_bytes))
+    culled = [1 - r / (tile_kernel.WARPS * s) if s else 0.0
+              for r, s in zip(run, sum_counts)]
+    nbytes = statistics.mean(view_bytes)
+    tile_pixels = tile_kernel.TILE_H * tile_kernel.TILE_W
+    bound_ms, bound_by, ops_ms, bytes_ms = bound(
+        statistics.mean(run) * (tile_pixels // tile_kernel.WARPS)
+        * FLOPS_PER_TEST, nbytes)
+    mean_counts = statistics.mean(sum_counts)
+    every_ms = bound(mean_counts * tile_pixels * FLOPS_PER_TEST, nbytes)[0]
     phase(
         f"phase 5 [{card}]: {name} ({n_views} views {width}x{height}), per "
         f"view: raster_tile {times['ms']:.6f} ms (graph replays), "
         f"{times['launched_ms']:.6f} ms launched view by view; turns "
-        f"{turns}; plain {plain_ms:.6f} ms; sum(counts) per view "
-        f"{sum_counts} (mean {mean_counts}), heaviest tile per view "
-        f"{max_counts}, bound {bound_ms:.6f} ms ({bound_by}: ops "
-        f"{ops_ms:.6f} ms, bytes {bytes_ms:.6f} ms)"
+        f"{turns}; heaviest tile alone {heaviest_ms:.6f} ms (turns "
+        f"{ {k: v['ms'] for k, v in heavy.items()} }); every tile empty "
+        f"{empty_ms:.6f} ms (turns { {k: v['ms'] for k, v in empty.items()} }"
+        f"); plain {plain_ms:.6f} ms; bound {bound_ms:.6f} ms ({bound_by}: "
+        f"ops {ops_ms:.6f} ms for the (candidate, warp) tests run at "
+        f"{PEAK_FP32_OPS / 1e12} T operations/s, bytes {bytes_ms:.6f} ms), "
+        f"every candidate at every pixel of its tile {every_ms:.6f} ms; "
+        f"culled share of (candidate, warp) tests "
+        f"{statistics.mean(culled):.6f} (per view "
+        f"{[round(c, 6) for c in culled]}); tests run per view {run}; "
+        f"sum(counts) per view {sum_counts} (mean {mean_counts}), heaviest "
+        f"tile per view {max_counts}; (candidate, 16x16 rectangle) pairs "
+        f"past the edge test alone per view {[m[0] for m in meets]}, most "
+        f"in one rectangle per view {[m[1] for m in meets]}"
     )
     return dict(times, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by,
+                bound_by=bound_by, bound_every_pair_ms=every_ms,
+                heaviest_tile_ms=heaviest_ms, empty_ms=empty_ms,
+                culled_share=statistics.mean(culled), tests_run=run,
                 **against_entry(against,
-                                lambda k: turn_means(turns[k])))
+                                lambda k: turn_means(turns[k]),
+                                lambda k: {
+                                    "heaviest_tile_ms":
+                                        statistics.mean(heavy[k]["ms"]),
+                                    "empty_ms":
+                                        statistics.mean(empty[k]["ms"])}))
 
 
 def heaviest_alone(args):

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library with
 a plain C interface, `build/torch_kernels/lib<name>-<hash>.so` at the root
-of the checkout, the first time it is needed; the hash covers the source
-and the flags, so an edited source rebuilds. nvcc's output (with the
+of the checkout, the first time it is needed; the hash covers the source,
+the shared headers `csrc/*.cuh` and the flags, so an edited source or
+header rebuilds. nvcc's output (with the
 -Xptxas -v register and shared-memory report) is kept beside it as `.log`.
 The library is loaded with ctypes. A failed build raises; nothing falls
 back to another implementation.
@@ -41,9 +42,13 @@ def _nvcc():
 
 
 def library_path(name):
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """The library of csrc/<name>.cu; its hash covers that source, every
+    csrc/*.cuh header (a kernel may include any of them) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(*names):

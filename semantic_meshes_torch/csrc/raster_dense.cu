@@ -71,32 +71,13 @@
 //    (lane l: column l % 16, rows l / 16 + 2k, k < 8; one column per
 //    thread keeps each form's x term out of the pixel loop). Each lane
 //    tests one candidate of a batch of 32 against the warp's rectangle
-//    (below) and a ballot leaves the survivors, which the whole warp then
-//    tests at its 256 pixels in list order. 16 x 16 was kept over 32 x 8:
-//    both cull ~0.79 of the (candidate, warp) tests at `scannet`, and 32 x
-//    8 culls more in the heaviest tiles (thin horizontal slivers), but it
-//    piles their survivors onto the warps of one row band, and a block
-//    waits for its busiest warp; 16 x 16 was faster on the H100.
-//
-// Why the cull is exact. Each form is computed as fl(fl(fl(a*px) +
-// fl(b*py)) + c), every op rounded to nearest. Rounding is monotone on
-// the extended reals, so x -> fl(a*x) is non-decreasing for a >= 0
-// (including -0) and non-increasing for a < 0, and fl(u + v) is
-// non-decreasing in u and in v. Hence, over the warp's pixel centres (a
-// product of its columns' px and its rows' py, each increasing with the
-// pixel index since fl is monotone), the form at a pixel where it is not
-// NaN is at most its value at the corner (px_hi if a >= 0 else px_lo,
-// py_hi if b >= 0 else py_lo), computed in the same op order: where u and
-// v are bounded by the corner's u_c, v_c and u + v is defined, so is
-// u_c + v_c or the corner is NaN. So if the corner's w < 0 (false for
-// NaN), no pixel of the warp has w >= 0 and the warp skips the candidate;
-// a NaN corner never culls. inf is an ordinary extended value here; inf *
-// 0 can only arise at py = 0 (px >= 0.5 always; py >= 0.5 when y_offset
-// >= 0) and gives a NaN pixel that fails anyway; ±0 compare equal and
-// give equal sums. The same holds for the inverse-depth plane against a
-// lower bound of the warp's buffer (its minimum, taken per batch of 32:
-// the buffer only grows, and the test is a strict >): if the corner's
-// inv_z <= that minimum, no pixel can take the candidate.
+//    (corner_max; why that is exact: raster_common.cuh) and a ballot
+//    leaves the survivors, which the whole warp then tests at its 256
+//    pixels in list order. 16 x 16 was kept over 32 x 8: both cull ~0.79
+//    of the (candidate, warp) tests at `scannet`, and 32 x 8 culls more in
+//    the heaviest tiles (thin horizontal slivers), but it piles their
+//    survivors onto the warps of one row band, and a block waits for its
+//    busiest warp; 16 x 16 was faster on the H100.
 //
 // What bounds it on the H100. The bound chip_smoke.py reports is fp32 ALU
 // work: per candidate and pixel the four affine forms cost 4 multiplies
@@ -112,15 +93,21 @@
 // for its busiest warp, and per item a pass through the pipeline (an
 // empty tile still costs one) and, for a split tile, the merge.
 //
-// Rounding: each form is (p0*px + p1*py) + p2 with __fmul_rn/__fadd_rn (no
-// contraction into FMA; the build also passes -fmad=false), and the depth
-// is the correctly rounded __fdiv_rn(1, inv_z). Ids and depths are then
+// Rounding: as raster_common.cuh states, so ids and depths are
 // bit-identical to the plain version.
 
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "raster_common.cuh"
+
 namespace {
+
+using sm_raster::corner_max;
+using sm_raster::cp_async16;
+using sm_raster::cp_async4;
+using sm_raster::cp_async_commit;
+using sm_raster::cp_async_wait_all;
 
 constexpr int kTileH = 16;
 constexpr int kTileW = 128;
@@ -149,32 +136,6 @@ struct Item {
   int items;      // work items of the tile
   int own_start;  // starts[tile]
 };
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // All threads: the shared-memory window of tiles [tile0, tile0 + kWindow):
 // the inclusive prefix sums of their item counts max(1, ceil(len /
@@ -267,16 +228,6 @@ __device__ __forceinline__ void fetch_rows(int count, const int* ids,
     cp_async16(dst + v, table + static_cast<size_t>(ids[v / kVecPerRow]) *
                                     kVecPerRow + (v % kVecPerRow));
   }
-}
-
-// (a*px + b*py) + c at the corner of [pxl, pxh] x [pyl, pyh] where it is
-// largest (see the note above), in the per-pixel test's op order.
-__device__ __forceinline__ float corner_max(float a, float b, float c,
-                                            float pxl, float pxh, float pyl,
-                                            float pyh) {
-  const float px = a >= 0.0f ? pxh : pxl;
-  const float py = b >= 0.0f ? pyh : pyl;
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, px), __fmul_rn(b, py)), c);
 }
 
 // This thread's pixels (column x, rows y0 + k * kRowStep) of the micro

@@ -5,122 +5,219 @@
 // same function; the plain PyTorch version beside its wrapper is
 // semantic_meshes_torch/rasterize/tile_kernel.py::resolve_tiles_plain.
 //
-// What it computes. One CTA per (32, 128) screen tile b. The tile's
-// counts[b] candidate triangles (ascending ids, from the binning pass) are
-// tested at each pixel centre: three edge forms pre-multiplied by
-// sign(area), inside when every w_i >= 0, and an inverse-depth plane. A
-// strict inv_z > buffer keeps the lowest id on a depth tie. Each pixel gets
-// z = 1/inv_z (+inf where empty) and the winner's id (-1 where empty).
+// What it computes. The binning pass gives each (32, 128) screen tile b a
+// list of counts[b] <= 256 candidate triangles, ascending ids padded with
+// the sentinel row. Each candidate is tested at each pixel centre: three
+// edge forms pre-multiplied by sign(area), inside when every w_i >= 0, and
+// an inverse-depth plane. A serial scan of the list with a strict inv_z >
+// buffer (buffer 0 at first) keeps, per pixel, the first candidate in list
+// order that reaches the largest inv_z > 0, so the lowest id on a depth
+// tie. Each pixel gets z = 1/inv_z (+inf where empty) and the winner's id
+// lane (-1 where empty).
 //
-// Layout. The CTA gathers its counts[b] table rows (64 bytes each, at most
-// 256 of them = 16 KB) through the candidate ids into shared memory, so the
-// (B, N, 16) per-tile gathered table that the TPU path builds in device
-// memory never exists. 256 threads; thread t owns column t % 128 and rows
-// t / 128 + 2k (k < 16), keeping those 16 pixels' inv_z and id in
-// registers. Every thread reads the same candidate row at the same time
-// (shared-memory broadcast). A warp stores 32 consecutive pixels, once.
+// Design. The binning is uneven (at bench.py's `large` preset the mean
+// tile holds ~8 candidates, the heaviest ~130, thin slivers of a cube face
+// seen edge-on), and a tile owned by one CTA that tests every candidate at
+// every one of its 4096 pixels left the kernel as slow as its heaviest
+// tiles.
+// 1. Warp-owned rectangles. A warp owns 16 columns x 16 rows of a tile
+//    (lane l: column l % 16, rows l / 16 + 2k, k < 8, so each form's x term
+//    stays out of the pixel loop), 16 rectangles a tile. A CTA of 8 warps
+//    takes one 16-row band of a tile, so a tile's pixels are spread over
+//    16 warps of two CTAs.
+// 2. Every warp scans the tile's whole list, in list order, in batches of
+//    32: lane i fetches candidate i's 64-byte row (cp.async, addressed
+//    through the id, into the warp's own shared buffer; the next batch's
+//    rows are in flight while a batch is tested, and the id after that in a
+//    register), tests it against the warp's rectangle by the exact corner
+//    rule (corner_max; raster_common.cuh proves it), and a ballot leaves
+//    the survivors, which the whole warp tests at its 256 pixels in order.
+//    Each pixel belongs to one warp and that warp sees the full list in
+//    order, so the result is the serial scan's by construction: no merge,
+//    no scratch, no atomics, no dependence on scheduling, and no block
+//    barrier. The list is at most 256 rows, so a rectangle re-reads at most
+//    16 KB, from L2.
 //
-// What bounds it on the H100: fp32 ALU work against the image write. Per
-// candidate and pixel the four affine forms cost 4 multiplies and 8 adds
-// once each form's x term is taken out of the pixel loop (plus four
-// compares and two selects), i.e. sum(counts) x 4096 pixels x 12 flops
-// against the card's 67 TFLOP/s of non-tensor fp32; the bytes are the
-// candidate ids, one read of each table row they name and one write of the
-// 8-byte-per-pixel image at 3.35 TB/s. On bench.py's cube scenes the two
-// are of one size (at `large`, ~6000 tile-candidates per 2048x1536 view:
-// ~4.4 us of fp32 work, ~7.5 us of writes). The design takes each form's x
-// term out of the pixel loop (a thread's pixels share a column) and reads
-// candidate rows from shared memory, so the inner loop is arithmetic only,
-// and it writes each pixel once. Incremental (per-row stepping) evaluation would save more
-// multiplies but round differently from the plain version; it is not
-// used. Known limit: one CTA per tile cannot spread a heavy tile (up to
-// ~130 candidates where the mean is ~8) over several SMs; the kernel runs
-// well above its bound (PERF.md).
+// What bounds it on the H100. The bound chip_smoke.py reports is fp32 ALU
+// work: per candidate and pixel the four affine forms cost 4 multiplies
+// and 8 adds, 12 operations at each of the 256 pixels of every (candidate,
+// warp) test the cull leaves (the launch counts them when given `tested`),
+// against 33.5 T un-fused fp32 operations per second (the 67 TFLOP/s peak
+// counts an FMA as two, and -fmad=false rules FMA out). The bytes are the
+// counts, the listed ids, one read of each table row they name and one
+// write of the 8-byte-per-pixel image at 3.35 TB/s. On bench.py's cube
+// scenes most tiles hold a few candidates, so the image write and each
+// warp's chain of dependent loads (count, ids, rows) weigh most; the
+// heaviest rectangle's surviving tests (a warp tests a survivor at all 8
+// of a thread's pixels, though a sliver covers one or two of its rows) are
+// what is left of the imbalance (PERF.md).
 //
-// Rounding: each form is (p0*px + p1*py) + p2 with __fmul_rn/__fadd_rn (no
-// contraction into FMA; the build also passes -fmad=false), and the depth
-// is the correctly rounded __fdiv_rn(1, inv_z). Ids and depths are then
+// Rounding: as raster_common.cuh states, so ids and depths are
 // bit-identical to the plain version.
 
 #include <cuda_runtime.h>
 
+#include "raster_common.cuh"
+
 namespace {
+
+using sm_raster::corner_max;
+using sm_raster::cp_async16;
+using sm_raster::cp_async_commit;
+using sm_raster::cp_async_wait_group;
 
 constexpr int kTileH = 32;
 constexpr int kTileW = 128;
-constexpr int kThreads = 256;
-constexpr int kRowStep = kThreads / kTileW;              // 2
-constexpr int kRowsPerThread = kTileH * kTileW / kThreads;  // 16
+constexpr int kWarpCols = 16;                          // a warp's rectangle:
+constexpr int kWarpRows = 32 * 8 / kWarpCols;          // 16 x 16 pixels
+constexpr int kRectCols = kTileW / kWarpCols;          // 8
+constexpr int kRowStep = 32 / kWarpCols;               // 2
+constexpr int kRowsPerThread = kWarpRows / kRowStep;   // 8
+constexpr int kWarps = kRectCols;  // warps per CTA: one 16-row band a CTA
+constexpr int kThreads = kWarps * 32;
+constexpr int kBandsPerTile = kTileH / kWarpRows;      // 2 CTAs a tile
+static_assert(kBandsPerTile * kWarps * kWarpCols * kWarpRows ==
+                  kTileH * kTileW,
+              "the warps' rectangles tile the tile");
+constexpr int kBatch = 32;  // candidates a warp culls per ballot
 constexpr int kMaxCand = 256;
 constexpr int kVecPerRow = 4;  // 16 f32 lanes = 4 float4
+constexpr unsigned kFull = 0xffffffffu;
 
+// Lane `lane` of a warp: the 64-byte row of candidate c (if c < n) into
+// its slot of the batch buffer `dst`.
+__device__ __forceinline__ void fetch_row(int c, int n, int id, float4* dst,
+                                          const float4* __restrict__ table,
+                                          int lane) {
+  if (c < n) {
+#pragma unroll
+    for (int v = 0; v < kVecPerRow; ++v) {
+      cp_async16(dst + lane * kVecPerRow + v,
+                 table + static_cast<size_t>(id) * kVecPerRow + v);
+    }
+  }
+  cp_async_commit();
+}
+
+// tested: null, or a count the (candidate, warp) tests run are added to
 __global__ void __launch_bounds__(kThreads)
 raster_tile_kernel(const float4* __restrict__ table,
                    const int* __restrict__ cand,
                    const int* __restrict__ counts,
                    float* __restrict__ zout, int* __restrict__ iout,
-                   int n_slots, int nbx, int height, int width,
-                   float y_offset) {
-  __shared__ float4 rows[kMaxCand * kVecPerRow];
+                   unsigned long long* __restrict__ tested, int n_slots,
+                   int nbx, int height, int width, float y_offset) {
+  __shared__ float4 rows[kWarps][2][kBatch * kVecPerRow];
 
-  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x / kBandsPerTile;
   const int tile_y = b / nbx;
   const int tile_x = b - tile_y * nbx;
-  const int n_cand = min(counts[b], min(n_slots, kMaxCand));
-  const int* tile_cand = cand + static_cast<size_t>(b) * n_slots;
-  for (int i = threadIdx.x; i < n_cand * kVecPerRow; i += kThreads) {
-    rows[i] = table[static_cast<size_t>(tile_cand[i / kVecPerRow]) *
-                        kVecPerRow + (i % kVecPerRow)];
-  }
-  __syncthreads();
+  // the warp's rectangle's first pixel, this thread's column and first row
+  const int x0 = tile_x * kTileW + warp * kWarpCols;
+  const int y0 = tile_y * kTileH + blockIdx.x % kBandsPerTile * kWarpRows;
+  const int x = x0 + lane % kWarpCols;
+  const int y = y0 + lane / kWarpCols;
 
-  const int col = threadIdx.x % kTileW;
-  const int row0 = threadIdx.x / kTileW;
-  const int x = tile_x * kTileW + col;
+  const int n = min(__ldg(counts + b), min(n_slots, kMaxCand));
+  const int* tile_cand = cand + static_cast<size_t>(b) * n_slots;
+  float4(*buf)[kBatch * kVecPerRow] = rows[warp];
+  // prologue: batch 0's rows in flight, batch 1's id in a register
+  fetch_row(lane, n, lane < n ? __ldg(tile_cand + lane) : 0, buf[0], table,
+            lane);
+  int next_id = kBatch + lane < n ? __ldg(tile_cand + kBatch + lane) : 0;
+
   const float px = __fadd_rn(static_cast<float>(x), 0.5f);
   float py[kRowsPerThread];
   float invz[kRowsPerThread];
   int idx[kRowsPerThread];
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
-    const int y = tile_y * kTileH + row0 + k * kRowStep;
-    py[k] = __fadd_rn(__fadd_rn(static_cast<float>(y), 0.5f), y_offset);
+    py[k] = __fadd_rn(__fadd_rn(static_cast<float>(y + k * kRowStep), 0.5f),
+                      y_offset);
     invz[k] = 0.0f;
     idx[k] = -1;
   }
+  // the warp's rectangle of pixel centres
+  const float pxl = __fadd_rn(static_cast<float>(x0), 0.5f);
+  const float pxh = __fadd_rn(static_cast<float>(x0 + kWarpCols - 1), 0.5f);
+  const float pyl = __fadd_rn(__fadd_rn(static_cast<float>(y0), 0.5f),
+                              y_offset);
+  const float pyh = __fadd_rn(
+      __fadd_rn(static_cast<float>(y0 + kWarpRows - 1), 0.5f), y_offset);
 
-  for (int c = 0; c < n_cand; ++c) {
-    // lanes: q0 = (a0, b0, c0, a1), q1 = (b1, c1, a2, b2),
-    //        q2 = (c2, id, az, bz), q3 = (cz, 0, 0, 0)
-    const float4 q0 = rows[c * kVecPerRow + 0];
-    const float4 q1 = rows[c * kVecPerRow + 1];
-    const float4 q2 = rows[c * kVecPerRow + 2];
-    const float q3x = rows[c * kVecPerRow + 3].x;
-    const float ax0 = __fmul_rn(q0.x, px);
-    const float ax1 = __fmul_rn(q0.w, px);
-    const float ax2 = __fmul_rn(q1.z, px);
-    const float axz = __fmul_rn(q2.z, px);
-    const int tid = __float_as_int(q2.y);
+  unsigned long long tests = 0;
+  for (int cb = 0, s = 0; cb < n; cb += kBatch, s ^= 1) {
+    __syncwarp();  // every lane is done with the batch before this one
+    fetch_row(cb + kBatch + lane, n, next_id, buf[s ^ 1], table, lane);
+    next_id = cb + 2 * kBatch + lane < n
+                  ? __ldg(tile_cand + cb + 2 * kBatch + lane)
+                  : 0;
+    cp_async_wait_group<1>();  // this lane's rows of this batch...
+    __syncwarp();              // ...and every lane's have landed
+    const float4* r = buf[s];
+
+    float lo = invz[0];
 #pragma unroll
-    for (int k = 0; k < kRowsPerThread; ++k) {
-      const float w0 = __fadd_rn(__fadd_rn(ax0, __fmul_rn(q0.y, py[k])), q0.z);
-      const float w1 = __fadd_rn(__fadd_rn(ax1, __fmul_rn(q1.x, py[k])), q1.y);
-      const float w2 = __fadd_rn(__fadd_rn(ax2, __fmul_rn(q1.w, py[k])), q2.x);
-      const float iz = __fadd_rn(__fadd_rn(axz, __fmul_rn(q2.w, py[k])), q3x);
-      const bool ok = (w0 >= 0.0f) & (w1 >= 0.0f) & (w2 >= 0.0f) &
-                      (iz > invz[k]);
-      invz[k] = ok ? iz : invz[k];
-      idx[k] = ok ? tid : idx[k];
+    for (int k = 1; k < kRowsPerThread; ++k) lo = fminf(lo, invz[k]);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      lo = fminf(lo, __shfl_xor_sync(kFull, lo, o));
+    bool live = false;
+    if (cb + lane < n) {
+      // lanes: q0 = (a0, b0, c0, a1), q1 = (b1, c1, a2, b2),
+      //        q2 = (c2, id, az, bz), q3 = (cz, 0, 0, 0)
+      const float4 q0 = r[lane * kVecPerRow + 0];
+      const float4 q1 = r[lane * kVecPerRow + 1];
+      const float4 q2 = r[lane * kVecPerRow + 2];
+      const float q3x = r[lane * kVecPerRow + 3].x;
+      live = !(corner_max(q0.x, q0.y, q0.z, pxl, pxh, pyl, pyh) < 0.0f) &&
+             !(corner_max(q0.w, q1.x, q1.y, pxl, pxh, pyl, pyh) < 0.0f) &&
+             !(corner_max(q1.z, q1.w, q2.x, pxl, pxh, pyl, pyh) < 0.0f) &&
+             !(corner_max(q2.z, q2.w, q3x, pxl, pxh, pyl, pyh) <= lo);
+    }
+    unsigned mask = __ballot_sync(kFull, live);
+    tests += __popc(mask);
+    while (mask) {
+      const int c = __ffs(mask) - 1;
+      mask &= mask - 1;
+      const float4 q0 = r[c * kVecPerRow + 0];
+      const float4 q1 = r[c * kVecPerRow + 1];
+      const float4 q2 = r[c * kVecPerRow + 2];
+      const float q3x = r[c * kVecPerRow + 3].x;
+      const float ax0 = __fmul_rn(q0.x, px);
+      const float ax1 = __fmul_rn(q0.w, px);
+      const float ax2 = __fmul_rn(q1.z, px);
+      const float axz = __fmul_rn(q2.z, px);
+      const int tid = __float_as_int(q2.y);
+#pragma unroll
+      for (int k = 0; k < kRowsPerThread; ++k) {
+        const float w0 =
+            __fadd_rn(__fadd_rn(ax0, __fmul_rn(q0.y, py[k])), q0.z);
+        const float w1 =
+            __fadd_rn(__fadd_rn(ax1, __fmul_rn(q1.x, py[k])), q1.y);
+        const float w2 =
+            __fadd_rn(__fadd_rn(ax2, __fmul_rn(q1.w, py[k])), q2.x);
+        const float iz =
+            __fadd_rn(__fadd_rn(axz, __fmul_rn(q2.w, py[k])), q3x);
+        const bool ok = (w0 >= 0.0f) & (w1 >= 0.0f) & (w2 >= 0.0f) &
+                        (iz > invz[k]);
+        invz[k] = ok ? iz : invz[k];
+        idx[k] = ok ? tid : idx[k];
+      }
     }
   }
+  if (tested != nullptr && lane == 0 && tests != 0) atomicAdd(tested, tests);
 
   if (x >= width) return;
+  const float inf = __int_as_float(0x7f800000);
 #pragma unroll
   for (int k = 0; k < kRowsPerThread; ++k) {
-    const int y = tile_y * kTileH + row0 + k * kRowStep;
-    if (y < height) {
-      const size_t o = static_cast<size_t>(y) * width + x;
-      zout[o] = invz[k] > 0.0f ? __fdiv_rn(1.0f, invz[k]) : __int_as_float(0x7f800000);
+    const int yk = y + k * kRowStep;
+    if (yk < height) {
+      const size_t o = static_cast<size_t>(yk) * width + x;
+      zout[o] = invz[k] > 0.0f ? __fdiv_rn(1.0f, invz[k]) : inf;
       iout[o] = idx[k];
     }
   }
@@ -128,18 +225,21 @@ raster_tile_kernel(const float4* __restrict__ table,
 
 }  // namespace
 
-// table (T+1, 16) f32, cand (B, n_slots) i32, counts (B,) i32; outputs z f32
+// table (T+1, 16) f32, cand (B, n_slots) i32, counts (B,) i32; tested: null
+// or one i64 the (candidate, warp) tests run are added to; outputs z f32
 // and ids i32, both (height, width) row-major. Returns cudaGetLastError().
 extern "C" int sm_raster_tile(const void* table, const void* cand,
                               const void* counts, void* zout, void* iout,
-                              int num_tiles, int n_slots, int nbx, int height,
-                              int width, float y_offset, void* stream) {
+                              void* tested, int num_tiles, int n_slots,
+                              int nbx, int height, int width, float y_offset,
+                              void* stream) {
   if (num_tiles > 0) {
-    raster_tile_kernel<<<num_tiles, kThreads, 0,
+    raster_tile_kernel<<<num_tiles * kBandsPerTile, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(table), static_cast<const int*>(cand),
         static_cast<const int*>(counts), static_cast<float*>(zout),
-        static_cast<int*>(iout), n_slots, nbx, height, width, y_offset);
+        static_cast<int*>(iout), static_cast<unsigned long long*>(tested),
+        n_slots, nbx, height, width, y_offset);
   }
   return static_cast<int>(cudaGetLastError());
 }

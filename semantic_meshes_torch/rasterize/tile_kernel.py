@@ -2,8 +2,10 @@
 
 Counterpart of `semantic_meshes/rasterize/pallas_kernel.py`: the Pallas TPU
 kernel `_raster_kernel` becomes the hand-written CUDA kernel in
-`csrc/raster_tile.cu` (see the note there for its design and bound), and
-`rasterize()` here is the port of `pallas_kernel.rasterize`.
+`csrc/raster_tile.cu` (see the note there for its design and bound: each
+warp owns a 16 x 16 rectangle of a tile and scans the tile's whole list
+with an exact cull), and `rasterize()` here is the port of
+`pallas_kernel.rasterize`.
 
 Per (32, 128) screen tile, the resolve loops over the tile's candidates in
 ascending triangle id and keeps, per pixel centre, the candidate that is
@@ -35,6 +37,10 @@ TILE_W = tiles.TILE_W
 # Row T is a sentinel (all zero but c_i = -1: never inside); candidate
 # lists pad with its id.
 N_LANES = 16
+# warps per tile in the kernel (csrc/raster_tile.cu: a 16 x 16 rectangle
+# each): every candidate of a tile's list is one (candidate, warp) test per
+# warp, which the kernel's cull may skip
+WARPS = 16
 
 # kernel launches (a caller that counts sets it to 0 first); the plain
 # version never counts
@@ -49,7 +55,7 @@ def _kernel():
     from .. import _build
 
     fn = _build.load("raster_tile").sm_raster_tile
-    fn.argtypes = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
+    fn.argtypes = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P)
     fn.restype = ctypes.c_int
     return fn
 
@@ -151,14 +157,19 @@ def resolve_tiles_plain(table, cand, counts, y_offset, nbx, height, width,
     return image(z), image(idx)
 
 
-def resolve_tiles_cuda(table, cand, counts, y_offset, nbx, height, width):
+def resolve_tiles_cuda(table, cand, counts, y_offset, nbx, height, width,
+                       tested=None):
     """Launch csrc/raster_tile.cu on the current stream (no sync). The
     candidate ids must index rows of `table` (tiles._bin_triangles pads
-    with the sentinel row T)."""
+    with the sentinel row T). `tested`, None or a zeroed (1,) int64 CUDA
+    tensor, gets the (candidate, warp) tests the kernel's cull left added
+    to it (of WARPS per candidate of every tile's list)."""
     global launches
-    for name, t, dtype in (("table", table, torch.float32),
-                           ("cand", cand, torch.int32),
-                           ("counts", counts, torch.int32)):
+    checks = [("table", table, torch.float32), ("cand", cand, torch.int32),
+              ("counts", counts, torch.int32)]
+    if tested is not None:
+        checks.append(("tested", tested, torch.int64))
+    for name, t, dtype in checks:
         if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
             raise ValueError(
                 f"{name} must be a contiguous CUDA {dtype} tensor, got "
@@ -188,6 +199,7 @@ def resolve_tiles_cuda(table, cand, counts, y_offset, nbx, height, width):
             ctypes.c_void_p(counts.data_ptr()),
             ctypes.c_void_p(z.data_ptr()),
             ctypes.c_void_p(ids.data_ptr()),
+            ctypes.c_void_p(0 if tested is None else tested.data_ptr()),
             ctypes.c_int(B), ctypes.c_int(N), ctypes.c_int(nbx),
             ctypes.c_int(height), ctypes.c_int(width),
             ctypes.c_float(float(y_offset)),

@@ -4,8 +4,8 @@ Counterpart of `make_cube`, `make_ring_cameras` and `random_probs` in
 `semantic_meshes/testing.py` (numpy only, so both packages build the very
 same scene from the same arguments): a subdivided cube viewed by pinhole
 cameras on a ring, fused with random class probabilities. The port's own
-`dense_resolve_scene` builds inputs of the dense z-resolve directly in
-screen space, binned by hand.
+`dense_resolve_scene` and `tile_resolve_scene` build inputs of the two
+z-resolve kernels directly in screen space.
 """
 
 from __future__ import annotations
@@ -215,3 +215,92 @@ def dense_resolve_scene(name, device="cpu"):
     return (table, torch.arange(T, dtype=torch.int32, device=device),
             torch.as_tensor(starts, device=device), n_global, key, y_offset,
             nbx, height, width)
+
+
+# scenes of tile_resolve_scene, for the tile z-resolve's (32, 128) tiles of
+# 16 x 16 warp rectangles: a tile over the 256-candidate cap, slivers along
+# the rectangles' boundaries (with far-off-screen and overflowing
+# vertices), exact depth ties inside one rectangle and across two (with
+# permuted ids, so the earlier list position wins, not the smaller id), a
+# ragged right and bottom edge, a y_offset row band, and an all-empty view
+TILE_SCENES = ("cap", "slivers", "ties", "ragged", "band", "empty")
+
+
+def _slivers(rng, n, box, step=16):
+    """n thin triangles lying along the lines x = k * step and y = k *
+    step inside box = (x0, y0, x1, y1), each a fraction of a pixel wide."""
+    x0, y0, x1, y1 = box
+    p = np.zeros((n, 3, 2))
+    for i in range(n):
+        along = rng.uniform(5.0, 60.0)
+        width = rng.uniform(0.05, 0.9)
+        if i % 2:  # vertical, on a column boundary
+            x = step * rng.integers(1, max(2, (x1 - x0) // step)) + x0
+            y = rng.uniform(y0, y1)
+            p[i] = [[x - width / 2, y], [x + width / 2, y + 0.3],
+                    [x, y + along]]
+        else:  # horizontal, on a row boundary
+            y = step * rng.integers(1, max(2, (y1 - y0) // step)) + y0
+            x = rng.uniform(x0, x1)
+            p[i] = [[x, y - width / 2], [x + along, y], [x + 0.2,
+                                                         y + width / 2]]
+    return p, rng.uniform(2.0, 10.0, size=(n, 3))
+
+
+def tile_resolve_scene(name, device="cpu"):
+    """resolve_tiles arguments (table, cand, counts, y_offset, nbx, height,
+    width) of scene `name` (one of TILE_SCENES), made from a seed: screen
+    triangles binned by tiles._bin_triangles at the 256-candidate cap."""
+    import torch
+
+    from .rasterize import tile_kernel, tiles
+
+    rng = np.random.default_rng(sum(map(ord, name)))
+    width, height, y_offset = 256, 64, 0.0
+    parts = []
+    tri_ids = None
+    if name == "cap":  # tile 0 lists 256 of its ~300 triangles
+        parts += [_screen_tris(rng, 300, (4, 4, 124, 28), 6.0),
+                  _screen_tris(rng, 60, (0, 0, width, height), 40.0)]
+    elif name == "slivers":
+        parts += [_slivers(rng, 120, (0, 0, width, height)),
+                  _adversarial_tris(rng, 60, (0, 0, width, height)),
+                  _screen_tris(rng, 20, (0, 0, width, height), 30.0)]
+    elif name == "ties":  # copies of one triangle inside one rectangle and
+        # of one across two rectangles (and a band boundary), each copy
+        # listed at several positions
+        one = np.array([[[2, 2], [13, 3], [5, 13]]], np.float64)
+        two = np.array([[[10, 10], [40, 12], [20, 25]]], np.float64)
+        other, oz = _screen_tris(rng, 40, (0, 0, width, height), 25.0)
+        p = np.concatenate([one, other[:10], two, one, other[10:30], two,
+                            one, other[30:]])
+        z = np.concatenate([[[3.0] * 3], oz[:10], [[2.5, 3.0, 3.5]],
+                            [[3.0] * 3], oz[10:30], [[2.5, 3.0, 3.5]],
+                            [[3.0] * 3], oz[30:]])
+        parts.append((p, z))
+        # the earlier copies get the larger ids
+        tri_ids = np.arange(len(p), dtype=np.int32)[::-1].copy()
+    elif name == "ragged":
+        width, height = 300, 75
+        parts += [_screen_tris(rng, 150, (0, 0, width, height), 25.0),
+                  _slivers(rng, 30, (0, 0, width, height))]
+    elif name == "band":  # rows [37, 85) of a taller image
+        width, height, y_offset = 256, 48, 37.0
+        parts += [_screen_tris(rng, 120, (0, 20, width, 100), 25.0),
+                  _slivers(rng, 30, (0, 37, width, 85))]
+    elif name == "empty":  # every triangle off screen or behind the camera
+        p, z = _screen_tris(rng, 40, (-900, -900, -300, -300), 20.0)
+        p2, z2 = _screen_tris(rng, 10, (0, 0, width, height), 20.0)
+        parts += [(p, z), (p2, -z2)]
+    else:
+        raise KeyError(name)
+    p = np.concatenate([q for q, _ in parts])
+    z = np.concatenate([q for _, q in parts])
+    setup = tiles._setup_from_projected(
+        torch.as_tensor(p, dtype=torch.float32),
+        torch.as_tensor(z, dtype=torch.float32))
+    cand, counts, _ = tiles._bin_triangles(setup, height, width, 256,
+                                           y_offset)
+    table = tile_kernel.candidate_table(setup, tri_ids)
+    return (table.to(device), cand.to(device), counts.to(device), y_offset,
+            tiles._cdiv(width, tiles.TILE_W), height, width)

@@ -29,21 +29,27 @@ TILE_H, TILE_W = dense_kernel.TILE_H, dense_kernel.TILE_W
 _MASK32 = 0xFFFFFFFF
 
 
-def _item_scan(params, first, n, px, py):
-    """Serial scan of one work item from an empty buffer: params (B, K, 16)
-    rows, n (B,) live candidates; returns (inv_z, list position or -1)
-    per pixel of every tile."""
-    B = params.shape[0]
-    invz = torch.zeros((B, TILE_H, TILE_W), dtype=torch.float32)
-    pos = torch.full((B, TILE_H, TILE_W), -1, dtype=torch.int64)
-    for c in range(params.shape[1]):
+def _item_scan(params, first, n, px, py, state=None):
+    """Serial scan of one work item: params (B, K, 16) rows, n (B,) live
+    candidates or a (B, K) mask of them, px and py pixel centres of B
+    pixel blocks (a tile each, or a warp's rectangle), from `state`
+    (inv_z, position) or an empty buffer; returns (inv_z, list position
+    or -1) per pixel of every block."""
+    B, K = params.shape[:2]
+    shape = (B, *torch.broadcast_shapes(px.shape, py.shape)[1:])
+    if state is None:
+        state = (torch.zeros(shape, dtype=torch.float32),
+                 torch.full(shape, -1, dtype=torch.int64))
+    invz, pos = state
+    live = n if n.ndim == 2 else torch.arange(K)[None, :] < n[:, None]
+    for c in range(K):
         p = params[:, c, :, None, None]
         w0 = p[:, 0] * px + p[:, 1] * py + p[:, 2]
         w1 = p[:, 3] * px + p[:, 4] * py + p[:, 5]
         w2 = p[:, 6] * px + p[:, 7] * py + p[:, 8]
         iz = p[:, 10] * px + p[:, 11] * py + p[:, 12]
         ok = ((w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (iz > invz)
-              & (c < n)[:, None, None])
+              & live[:, c, None, None])
         invz = torch.where(ok, iz, invz)
         pos = torch.where(ok, torch.full_like(pos, first + c), pos)
     return invz, pos
@@ -220,8 +226,11 @@ def _corner(a, b, c, px, py):
     return _form(a, b, c, np.float32(pxc), np.float32(pyc))
 
 
+# y offsets: the dense rasterizer's, and the tile rasterizer's row bands
+# of 32-row tiles (and an odd one)
 _rects = st.tuples(st.integers(0, 4096 - 16), st.integers(0, 4096 - 16),
-                   st.sampled_from([0.0, 7.0, 0.5, 1024.0, -0.5, -100.0]))
+                   st.sampled_from([0.0, 7.0, 0.5, 1024.0, -0.5, -100.0,
+                                    32.0, 37.0, 96.0, 736.0]))
 
 
 def _edge_through(data, x0, y0):

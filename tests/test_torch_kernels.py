@@ -49,22 +49,41 @@ def _scenes():
     yield rv, rf, rcam, dict(cap=3)  # overflowing tiles
 
 
-@pytest.mark.parametrize("k", range(6))
+@pytest.mark.parametrize("k", [*range(6), *testing.TILE_SCENES])
 def test_raster_tile_matches_plain(cuda, k):
-    v, f, cam, kw = list(_scenes())[k]
-    args = _inputs(v, f, cam, cuda, **kw)
+    """Cube and random scenes (ragged tiles, a row band, overflowing
+    tiles) and the hand-binned testing.TILE_SCENES (a tile at the 256 cap,
+    slivers on the warps' rectangle boundaries, exact ties inside one
+    rectangle and across two, ragged edges, a band, an empty view): ids
+    equal and depths bit-equal to the plain version; on the hand-binned
+    scenes, the (candidate, warp) tests the kernel counts are those of the
+    CPU emulation of its cull (tests/test_torch_tile_split.py)."""
+    if isinstance(k, str):
+        args = testing.tile_resolve_scene(k, cuda)
+    else:
+        v, f, cam, kw = list(_scenes())[k]
+        args = _inputs(v, f, cam, cuda, **kw)
     before = tile_kernel.launches
-    zk, ik = tile_kernel.resolve_tiles(*args)
+    tested = torch.zeros(1, dtype=torch.int64, device=cuda)
+    zk, ik = tile_kernel.resolve_tiles_cuda(*args, tested=tested)
+    z2, i2 = tile_kernel.resolve_tiles(*args)
     torch.cuda.synchronize()
-    assert tile_kernel.launches == before + 1
+    assert tile_kernel.launches == before + 2
+    assert torch.equal(i2, ik)
+    assert torch.equal(z2.view(torch.int32), zk.view(torch.int32))
     zp, ip = tile_kernel.resolve_tiles_plain(*args)
     assert torch.equal(ik, ip)
     assert torch.equal(zk.view(torch.int32), zp.view(torch.int32))
     # and the CPU run of the plain version agrees with the card's
-    zc, ic = tile_kernel.resolve_tiles_plain(*(a.cpu() if torch.is_tensor(a)
-                                               else a for a in args))
+    cpu_args = [a.cpu() if torch.is_tensor(a) else a for a in args]
+    zc, ic = tile_kernel.resolve_tiles_plain(*cpu_args)
     assert torch.equal(ic, ik.cpu())
     assert torch.equal(zc.view(torch.int32), zk.cpu().view(torch.int32))
+    assert 0 <= int(tested) <= tile_kernel.WARPS * int(args[2].sum())
+    if isinstance(k, str):
+        from test_torch_tile_split import warp_scan
+
+        assert int(tested) == warp_scan(*cpu_args)[2]
 
 
 def test_segment_sum_is_deterministic_on_the_card(cuda):

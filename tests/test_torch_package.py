@@ -5,6 +5,7 @@ CUDA kernels are built from the sources in the package."""
 import ast
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -90,6 +91,26 @@ def test_kernel_sources_and_build_paths():
     assert path.name.startswith("libraster_tile-") and path.suffix == ".so"
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("name", ["raster_tile", "raster_dense"])
+def test_an_edited_header_changes_the_library_path(monkeypatch, tmp_path,
+                                                   name):
+    """Both kernels include csrc/raster_common.cuh, so its hash is part of
+    each library's path: an edited header never loads a stale library."""
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    assert '#include "raster_common.cuh"' in src
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path(name)
+    assert before == _build.library_path(name)  # stable
+    header = csrc / "raster_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    edited = _build.library_path(name)
+    assert edited != before and edited.name.startswith(f"lib{name}-")
+    (csrc / f"{name}.cu").write_text(src + "\n// edited\n")
+    assert _build.library_path(name) not in (before, edited)
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
