@@ -588,28 +588,29 @@ def tile_counts_only(args, keep):
     return (table, cand, new, *rest)
 
 
-def rect_meets(args, rect=16):
-    """Per view, from the table: the (candidate, rect x rect rectangle)
+def rect_meets(args, cols=16, rows=8):
+    """Per view, from the table: the (candidate, cols x rows rectangle)
     pairs whose three edge forms pass the corner test at the rectangle
-    (the kernel's cull without its depth test), and the most of them any
-    one rectangle has. Forms are rounded op by op, as the kernels do."""
+    (the kernel's cull without its depth test; the kernel's warps own
+    16 x 8 rectangles), and the most of them any one rectangle has. Forms
+    are rounded op by op, as the kernels do."""
     table, cand, counts, y_offset, nbx, _, _ = args
     B, N = cand.shape
-    rows = table[cand.long()]  # (B, N, 16)
+    params = table[cand.long()]  # (B, N, 16)
     live = torch.arange(N, device=cand.device)[None, :] < counts[:, None]
     b = torch.arange(B, device=cand.device)
-    r = torch.arange(32 * 128 // (rect * rect), device=cand.device)
-    x0 = ((b % nbx) * 128)[:, None] + (r % (128 // rect)) * rect
-    y0 = ((b // nbx) * 32)[:, None] + (r // (128 // rect)) * rect
+    r = torch.arange(32 * 128 // (cols * rows), device=cand.device)
+    x0 = ((b % nbx) * 128)[:, None] + (r % (128 // cols)) * cols
+    y0 = ((b // nbx) * 32)[:, None] + (r // (128 // cols)) * rows
     pxl = x0.to(torch.float32) + 0.5
-    pxh = (x0 + rect - 1).to(torch.float32) + 0.5
+    pxh = (x0 + cols - 1).to(torch.float32) + 0.5
     pyl = (y0.to(torch.float32) + 0.5) + y_offset
-    pyh = ((y0 + rect - 1).to(torch.float32) + 0.5) + y_offset
+    pyh = ((y0 + rows - 1).to(torch.float32) + 0.5) + y_offset
     meets = live[:, :, None]
     for e in range(3):
-        a = rows[:, :, 3 * e, None]
-        bb = rows[:, :, 3 * e + 1, None]
-        c = rows[:, :, 3 * e + 2, None]
+        a = params[:, :, 3 * e, None]
+        bb = params[:, :, 3 * e + 1, None]
+        c = params[:, :, 3 * e + 2, None]
         px = torch.where(a >= 0, pxh[:, None, :], pxl[:, None, :])
         py = torch.where(bb >= 0, pyh[:, None, :], pyl[:, None, :])
         meets = meets & ~((a * px + bb * py) + c < 0)  # (B, N, R)
@@ -687,7 +688,7 @@ def tile_times(name, device, card, against):
         f"{statistics.mean(culled):.6f} (per view "
         f"{[round(c, 6) for c in culled]}); tests run per view {run}; "
         f"sum(counts) per view {sum_counts} (mean {mean_counts}), heaviest "
-        f"tile per view {max_counts}; (candidate, 16x16 rectangle) pairs "
+        f"tile per view {max_counts}; (candidate, 16x8 rectangle) pairs "
         f"past the edge test alone per view {[m[0] for m in meets]}, most "
         f"in one rectangle per view {[m[1] for m in meets]}"
     )

@@ -19,38 +19,43 @@
 // tile holds ~8 candidates, the heaviest ~130, thin slivers of a cube face
 // seen edge-on), and a tile owned by one CTA that tests every candidate at
 // every one of its 4096 pixels left the kernel as slow as its heaviest
-// tiles.
-// 1. Warp-owned rectangles. A warp owns 16 columns x 16 rows of a tile
-//    (lane l: column l % 16, rows l / 16 + 2k, k < 8, so each form's x term
-//    stays out of the pixel loop), 16 rectangles a tile. A CTA of 8 warps
-//    takes one 16-row band of a tile, so a tile's pixels are spread over
-//    16 warps of two CTAs.
-// 2. Every warp scans the tile's whole list, in list order, in batches of
-//    32: lane i fetches candidate i's 64-byte row (cp.async, addressed
-//    through the id, into the warp's own shared buffer; the next batch's
-//    rows are in flight while a batch is tested, and the id after that in a
-//    register), tests it against the warp's rectangle by the exact corner
-//    rule (corner_max; raster_common.cuh proves it), and a ballot leaves
-//    the survivors, which the whole warp tests at its 256 pixels in order.
-//    Each pixel belongs to one warp and that warp sees the full list in
-//    order, so the result is the serial scan's by construction: no merge,
-//    no scratch, no atomics, no dependence on scheduling, and no block
-//    barrier. The list is at most 256 rows, so a rectangle re-reads at most
-//    16 KB, from L2.
+// tiles (PERF.md, PR 4).
+// 1. Split each tile by pixels. A warp owns 16 columns x 8 rows of a tile
+//    (lane l: column l % 16, rows l / 16 + 2k, k < 4, so each form's x term
+//    stays out of the pixel loop), 32 rectangles a tile. A CTA of 8 warps
+//    takes one 8-row band of a tile, so a tile's pixels are spread over 32
+//    warps of four CTAs.
+// 2. The CTA stages the tile's list once: thread c fetches row c (64 bytes,
+//    cp.async, addressed through the id, which it loads beside the count),
+//    and one barrier hands the list (at most 256 rows, 16 KB) to every warp.
+// 3. Each warp scans the whole list in order, in batches of 32: lane i tests
+//    candidate i of the batch against the warp's rectangle by the exact
+//    corner rule (corner_max; raster_common.cuh proves it; the depth plane
+//    against the warp's smallest inv_z at the batch's start), and a ballot
+//    leaves the survivors, which the whole warp tests at its 128 pixels in
+//    order. Each pixel belongs to one warp and that warp sees the full list
+//    in order, so the result is the serial scan's by construction: no
+//    merge, no scratch, no atomics, no dependence on scheduling.
+// On the H100, 16 x 8 rectangles beat 16 x 16 (a heavy rectangle's
+// survivors cost half as much per warp; more warps cost more in the empty
+// tiles), and the CTA-staged list beat per-warp double-buffered batches
+// (one wait instead of one per batch, and 8x fewer row reads from L2); a
+// candidate split of heavy tiles was not needed: no rectangle keeps more
+// than ~45 survivors (PERF.md, PR 4).
 //
-// What bounds it on the H100. The bound chip_smoke.py reports is fp32 ALU
-// work: per candidate and pixel the four affine forms cost 4 multiplies
-// and 8 adds, 12 operations at each of the 256 pixels of every (candidate,
-// warp) test the cull leaves (the launch counts them when given `tested`),
-// against 33.5 T un-fused fp32 operations per second (the 67 TFLOP/s peak
-// counts an FMA as two, and -fmad=false rules FMA out). The bytes are the
-// counts, the listed ids, one read of each table row they name and one
-// write of the 8-byte-per-pixel image at 3.35 TB/s. On bench.py's cube
-// scenes most tiles hold a few candidates, so the image write and each
-// warp's chain of dependent loads (count, ids, rows) weigh most; the
-// heaviest rectangle's surviving tests (a warp tests a survivor at all 8
-// of a thread's pixels, though a sliver covers one or two of its rows) are
-// what is left of the imbalance (PERF.md).
+// What bounds it on the H100. chip_smoke.py's bound is the larger of two
+// times. fp32 ALU work: per candidate and pixel the four affine forms cost
+// 4 multiplies and 8 adds, 12 operations at each of the 128 pixels of
+// every (candidate, warp) test the cull leaves (the launch counts them
+// when given `tested`), at 33.5 T un-fused fp32 operations per second (the
+// 67 TFLOP/s peak counts an FMA as two, and -fmad=false rules FMA out).
+// Bytes: the counts, the listed ids, one read of each table row they name
+// and one write of the 8-byte-per-pixel image, at 3.35 TB/s. On bench.py's
+// cube scenes the cull leaves so few tests that the bytes bound it, and
+// the image write (the launch with every tile empty) is most of the
+// kernel's time; the heaviest rectangle's surviving tests (a warp tests a
+// survivor at all 4 of a thread's pixels, though a sliver may cover one of
+// its rows) are what is left of the imbalance (PERF.md).
 //
 // Rounding: as raster_common.cuh states, so ids and depths are
 // bit-identical to the plain version.
@@ -64,18 +69,18 @@ namespace {
 using sm_raster::corner_max;
 using sm_raster::cp_async16;
 using sm_raster::cp_async_commit;
-using sm_raster::cp_async_wait_group;
+using sm_raster::cp_async_wait_all;
 
 constexpr int kTileH = 32;
 constexpr int kTileW = 128;
 constexpr int kWarpCols = 16;                          // a warp's rectangle:
-constexpr int kWarpRows = 32 * 8 / kWarpCols;          // 16 x 16 pixels
-constexpr int kRectCols = kTileW / kWarpCols;          // 8
+constexpr int kRowsPerThread = 4;                      // 16 x 8 pixels
 constexpr int kRowStep = 32 / kWarpCols;               // 2
-constexpr int kRowsPerThread = kWarpRows / kRowStep;   // 8
-constexpr int kWarps = kRectCols;  // warps per CTA: one 16-row band a CTA
+constexpr int kWarpRows = kRowStep * kRowsPerThread;   // 8
+constexpr int kRectCols = kTileW / kWarpCols;          // 8
+constexpr int kWarps = kRectCols;  // warps per CTA: one 8-row band a CTA
 constexpr int kThreads = kWarps * 32;
-constexpr int kBandsPerTile = kTileH / kWarpRows;      // 2 CTAs a tile
+constexpr int kBandsPerTile = kTileH / kWarpRows;      // 4 CTAs a tile
 static_assert(kBandsPerTile * kWarps * kWarpCols * kWarpRows ==
                   kTileH * kTileW,
               "the warps' rectangles tile the tile");
@@ -83,21 +88,7 @@ constexpr int kBatch = 32;  // candidates a warp culls per ballot
 constexpr int kMaxCand = 256;
 constexpr int kVecPerRow = 4;  // 16 f32 lanes = 4 float4
 constexpr unsigned kFull = 0xffffffffu;
-
-// Lane `lane` of a warp: the 64-byte row of candidate c (if c < n) into
-// its slot of the batch buffer `dst`.
-__device__ __forceinline__ void fetch_row(int c, int n, int id, float4* dst,
-                                          const float4* __restrict__ table,
-                                          int lane) {
-  if (c < n) {
-#pragma unroll
-    for (int v = 0; v < kVecPerRow; ++v) {
-      cp_async16(dst + lane * kVecPerRow + v,
-                 table + static_cast<size_t>(id) * kVecPerRow + v);
-    }
-  }
-  cp_async_commit();
-}
+static_assert(kThreads >= kMaxCand, "a thread fetches each row of a list");
 
 // tested: null, or a count the (candidate, warp) tests run are added to
 __global__ void __launch_bounds__(kThreads)
@@ -107,7 +98,7 @@ raster_tile_kernel(const float4* __restrict__ table,
                    float* __restrict__ zout, int* __restrict__ iout,
                    unsigned long long* __restrict__ tested, int n_slots,
                    int nbx, int height, int width, float y_offset) {
-  __shared__ float4 rows[kWarps][2][kBatch * kVecPerRow];
+  __shared__ float4 rows[kMaxCand * kVecPerRow];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -120,13 +111,24 @@ raster_tile_kernel(const float4* __restrict__ table,
   const int x = x0 + lane % kWarpCols;
   const int y = y0 + lane / kWarpCols;
 
-  const int n = min(__ldg(counts + b), min(n_slots, kMaxCand));
+  // the count and the list's ids are loaded side by side (slots past the
+  // count hold the sentinel row's id); rows are fetched only below the
+  // count, as every tile's padding names the same sentinel row (one
+  // address for every warp of the grid)
+  const int slots = min(n_slots, kMaxCand);
   const int* tile_cand = cand + static_cast<size_t>(b) * n_slots;
-  float4(*buf)[kBatch * kVecPerRow] = rows[warp];
-  // prologue: batch 0's rows in flight, batch 1's id in a register
-  fetch_row(lane, n, lane < n ? __ldg(tile_cand + lane) : 0, buf[0], table,
-            lane);
-  int next_id = kBatch + lane < n ? __ldg(tile_cand + kBatch + lane) : 0;
+  const int count = __ldg(counts + b);
+  const int id = threadIdx.x < slots ? __ldg(tile_cand + threadIdx.x) : 0;
+  const int n = min(count, slots);
+  // thread c fetches row c of the tile's list into shared memory
+  if (threadIdx.x < n) {
+#pragma unroll
+    for (int v = 0; v < kVecPerRow; ++v) {
+      cp_async16(rows + threadIdx.x * kVecPerRow + v,
+                 table + static_cast<size_t>(id) * kVecPerRow + v);
+    }
+  }
+  cp_async_commit();
 
   const float px = __fadd_rn(static_cast<float>(x), 0.5f);
   float py[kRowsPerThread];
@@ -147,16 +149,12 @@ raster_tile_kernel(const float4* __restrict__ table,
   const float pyh = __fadd_rn(
       __fadd_rn(static_cast<float>(y0 + kWarpRows - 1), 0.5f), y_offset);
 
+  cp_async_wait_all();
+  __syncthreads();  // the tile's list has landed
+
   unsigned long long tests = 0;
-  for (int cb = 0, s = 0; cb < n; cb += kBatch, s ^= 1) {
-    __syncwarp();  // every lane is done with the batch before this one
-    fetch_row(cb + kBatch + lane, n, next_id, buf[s ^ 1], table, lane);
-    next_id = cb + 2 * kBatch + lane < n
-                  ? __ldg(tile_cand + cb + 2 * kBatch + lane)
-                  : 0;
-    cp_async_wait_group<1>();  // this lane's rows of this batch...
-    __syncwarp();              // ...and every lane's have landed
-    const float4* r = buf[s];
+  for (int cb = 0; cb < n; cb += kBatch) {
+    const float4* r = rows + cb * kVecPerRow;
 
     float lo = invz[0];
 #pragma unroll

@@ -3,7 +3,7 @@
 Counterpart of `semantic_meshes/rasterize/pallas_kernel.py`: the Pallas TPU
 kernel `_raster_kernel` becomes the hand-written CUDA kernel in
 `csrc/raster_tile.cu` (see the note there for its design and bound: each
-warp owns a 16 x 16 rectangle of a tile and scans the tile's whole list
+warp owns a 16 x 8 rectangle of a tile and scans the tile's whole list
 with an exact cull), and `rasterize()` here is the port of
 `pallas_kernel.rasterize`.
 
@@ -37,10 +37,10 @@ TILE_W = tiles.TILE_W
 # Row T is a sentinel (all zero but c_i = -1: never inside); candidate
 # lists pad with its id.
 N_LANES = 16
-# warps per tile in the kernel (csrc/raster_tile.cu: a 16 x 16 rectangle
+# warps per tile in the kernel (csrc/raster_tile.cu: a 16 x 8 rectangle
 # each): every candidate of a tile's list is one (candidate, warp) test per
 # warp, which the kernel's cull may skip
-WARPS = 16
+WARPS = 32
 
 # kernel launches (a caller that counts sets it to 0 first); the plain
 # version never counts

@@ -226,11 +226,13 @@ def _corner(a, b, c, px, py):
     return _form(a, b, c, np.float32(pxc), np.float32(pyc))
 
 
-# y offsets: the dense rasterizer's, and the tile rasterizer's row bands
-# of 32-row tiles (and an odd one)
+# (x0, y0, y offset, rows): y offsets of the dense rasterizer and of the
+# tile rasterizer's row bands of 32-row tiles (and an odd one); 16 rows
+# (the dense kernel's warps) or 8 (the tile kernel's)
 _rects = st.tuples(st.integers(0, 4096 - 16), st.integers(0, 4096 - 16),
                    st.sampled_from([0.0, 7.0, 0.5, 1024.0, -0.5, -100.0,
-                                    32.0, 37.0, 96.0, 736.0]))
+                                    32.0, 37.0, 96.0, 736.0]),
+                   st.sampled_from([16, 8]))
 
 
 def _edge_through(data, x0, y0):
@@ -249,12 +251,12 @@ def _edge_through(data, x0, y0):
           suppress_health_check=[HealthCheck.too_slow])
 @given(data=st.data(), rect=_rects, near=st.booleans())
 def test_edge_cull_never_drops_a_passing_pixel(data, rect, near):
-    x0, y0, y_offset = rect
+    x0, y0, y_offset, rows = rect
     if near:
         a, b, c = _edge_through(data, x0, y0)
     else:
         a, b, c = (data.draw(_floats) for _ in range(3))
-    px, py = _rect(x0, y0, y_offset)
+    px, py = _rect(x0, y0, y_offset, rows=rows)
     if _corner(a, b, c, px, py) < 0:  # the kernel skips the candidate
         assert not (_form(a, b, c, px, py) >= 0).any()
 
@@ -265,12 +267,12 @@ def test_edge_cull_never_drops_a_passing_pixel(data, rect, near):
        lo=st.one_of(st.floats(0, 10, width=32),
                     st.sampled_from([0.0, 1e-45, 0.5])))
 def test_depth_cull_never_drops_a_nearer_pixel(data, rect, near, lo):
-    x0, y0, y_offset = rect
+    x0, y0, y_offset, rows = rect
     if near:
         a, b, c = _edge_through(data, x0, y0)
         c = float(_F32(c + lo))
     else:
         a, b, c = (data.draw(_floats) for _ in range(3))
-    px, py = _rect(x0, y0, y_offset)
+    px, py = _rect(x0, y0, y_offset, rows=rows)
     if _corner(a, b, c, px, py) <= _F32(lo):  # the kernel skips it
         assert not (_form(a, b, c, px, py) > _F32(lo)).any()

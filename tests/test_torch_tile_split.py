@@ -1,8 +1,8 @@
 """The design of the tile z-resolve kernel (csrc/raster_tile.cu), checked on
 the CPU without the card.
 
-The kernel splits each (32, 128) tile by pixels: a warp owns a 16 x 16
-rectangle and scans the tile's whole candidate list in order, in batches
+The kernel splits each (32, 128) tile by pixels: a warp owns a 16 x 8
+rectangle (16 columns, 8 rows) and scans the tile's whole candidate list in order, in batches
 of 32; per batch it culls each candidate by the corner rule against the
 rectangle (the edge forms, and the inverse-depth plane against the
 smallest inv_z in the warp's buffer at the batch's start), then tests the
@@ -10,8 +10,8 @@ survivors at its pixels in list order. `warp_scan` does the same in plain
 torch; it must equal the serial scan of the whole list
 (tile_kernel.resolve_tiles_plain) bit for bit, whatever the cull skips.
 The cull itself is proved by the hypothesis tests of
-tests/test_torch_dense_split.py, whose rectangles include the 32-row
-tiles' y offsets.
+tests/test_torch_dense_split.py, whose rectangles include 16 x 8 ones and
+the 32-row tiles' y offsets.
 """
 
 import re
@@ -25,7 +25,7 @@ from semantic_meshes_torch.rasterize import tile_kernel
 from test_torch_dense_split import _item_scan, _random_lists
 
 TILE_H, TILE_W = tile_kernel.TILE_H, tile_kernel.TILE_W
-RECT = 16  # a warp's rectangle: RECT x RECT pixels
+RW, RH = 16, 8  # a warp's rectangle: RW columns x RH rows
 BATCH = 32  # candidates a warp culls at once
 
 
@@ -34,15 +34,15 @@ def warp_scan(table, cand, counts, y_offset, nbx, height, width):
     ids) images, as resolve_tiles_plain does, and the (candidate, warp)
     tests the cull left."""
     B, N = cand.shape
-    bands, cols = TILE_H // RECT, TILE_W // RECT
+    bands, cols = TILE_H // RH, TILE_W // RW
     R = bands * cols
     px, py = tile_kernel._pixel_centres(B // nbx, nbx, y_offset,
                                         table.device)
-    # (B * R, RECT, RECT) pixel centres, rectangle r = band * cols + col
-    px = px.reshape(B, 1, 1, cols, RECT).expand(B, bands, RECT, cols, RECT)
-    py = py.reshape(B, bands, RECT, 1, 1).expand(B, bands, RECT, cols, RECT)
-    px = px.permute(0, 1, 3, 2, 4).reshape(B * R, RECT, RECT)
-    py = py.permute(0, 1, 3, 2, 4).reshape(B * R, RECT, RECT)
+    # (B * R, RH, RW) pixel centres, rectangle r = band * cols + col
+    px = px.reshape(B, 1, 1, cols, RW).expand(B, bands, RH, cols, RW)
+    py = py.reshape(B, bands, RH, 1, 1).expand(B, bands, RH, cols, RW)
+    px = px.permute(0, 1, 3, 2, 4).reshape(B * R, RH, RW)
+    py = py.permute(0, 1, 3, 2, 4).reshape(B * R, RH, RW)
     pxl, pxh = px[:, 0, 0], px[:, 0, -1]
     pyl, pyh = py[:, 0, 0], py[:, -1, 0]
 
@@ -68,8 +68,8 @@ def warp_scan(table, cand, counts, y_offset, nbx, height, width):
         tests += int(live.sum())
         state = _item_scan(p, cb, live, px, py, state)
     if state is None:  # no slots at all
-        state = (torch.zeros((B * R, RECT, RECT)),
-                 torch.full((B * R, RECT, RECT), -1, dtype=torch.int64))
+        state = (torch.zeros((B * R, RH, RW)),
+                 torch.full((B * R, RH, RW), -1, dtype=torch.int64))
     invz, pos = state
     found = pos >= 0
     rows = torch.gather(cand.long().repeat_interleave(R, dim=0), 1,
@@ -79,8 +79,8 @@ def warp_scan(table, cand, counts, y_offset, nbx, height, width):
     z = torch.where(found, torch.reciprocal(invz),
                     torch.full_like(invz, float("inf")))
 
-    def image(t):  # (B * R, RECT, RECT) rectangles -> (height, width)
-        return (t.reshape(B // nbx, nbx, bands, cols, RECT, RECT)
+    def image(t):  # (B * R, RH, RW) rectangles -> (height, width)
+        return (t.reshape(B // nbx, nbx, bands, cols, RH, RW)
                 .permute(0, 2, 4, 1, 3, 5)
                 .reshape(B // nbx * TILE_H, nbx * TILE_W)[:height, :width])
 
@@ -164,24 +164,28 @@ def test_kernel_constants_match_the_source():
         return m.group(1).split("//")[0].strip()
 
     assert int(const("kTileH")) == TILE_H and int(const("kTileW")) == TILE_W
-    assert int(const("kWarpCols")) == RECT  # the rectangle warp_scan uses
-    assert const("kWarpRows") == "32 * 8 / kWarpCols"  # 16 rows
+    # the rectangle warp_scan uses: lane l takes column l % kWarpCols and
+    # rows l / kWarpCols + (32 / kWarpCols) k for k < kRowsPerThread
+    assert int(const("kWarpCols")) == RW
+    assert const("kRowStep") == "32 / kWarpCols"
+    assert const("kWarpRows") == "kRowStep * kRowsPerThread"
+    assert 32 // RW * int(const("kRowsPerThread")) == RH
     assert int(const("kBatch")) == BATCH
-    assert (TILE_H // RECT) * (TILE_W // RECT) == tile_kernel.WARPS
+    assert (TILE_H // RH) * (TILE_W // RW) == tile_kernel.WARPS
     assert '#include "raster_common.cuh"' in src
     assert "corner_max(" in src
 
 
-@pytest.mark.parametrize("rect", [0, 5, 8, 15])
+@pytest.mark.parametrize("rect", [0, 5, 8, 19, 31])
 def test_a_triangle_inside_one_rectangle_is_tested_by_one_warp(rect):
     """Rectangle r = band * 8 + column of the kernel's warps: a triangle
     strictly inside r's pixel centres survives only r's edge cull."""
-    band, col = divmod(rect, TILE_W // RECT)
-    x0, y0 = 128 + col * RECT, 32 + band * RECT  # in tile (1, 1)
+    band, col = divmod(rect, TILE_W // RW)
+    x0, y0 = 128 + col * RW, 32 + band * RH  # in tile (1, 1)
     # legs along the rectangle's sides: every other rectangle fails one
     # edge's corner test
     p = torch.tensor([[[x0 + 1.0, y0 + 1.0], [x0 + 14.0, y0 + 1.0],
-                       [x0 + 1.0, y0 + 14.0]]])
+                       [x0 + 1.0, y0 + 6.0]]])
     setup = tile_kernel.tiles._setup_from_projected(p, torch.full((1, 3),
                                                                   2.0))
     cand, counts, _ = tile_kernel.tiles._bin_triangles(setup, 64, 256, 256,
@@ -191,5 +195,5 @@ def test_a_triangle_inside_one_rectangle_is_tested_by_one_warp(rect):
     ids, tests, listed = _check(args)
     assert listed == 1 and tests == 1
     hit = (ids == 0).nonzero()
-    assert int(hit[:, 0].min()) >= y0 and int(hit[:, 0].max()) < y0 + RECT
-    assert int(hit[:, 1].min()) >= x0 and int(hit[:, 1].max()) < x0 + RECT
+    assert int(hit[:, 0].min()) >= y0 and int(hit[:, 0].max()) < y0 + RH
+    assert int(hit[:, 1].min()) >= x0 and int(hit[:, 1].max()) < x0 + RW
