@@ -647,7 +647,7 @@ def tile_times(name, device, card, against):
     plain_ms = cuda_time_ms(
         lambda: [tile_kernel.resolve_tiles_plain(*a) for a in inputs],
         reps=5) / n_views
-    # The bound of the mean view. Operations: 12 at each of a warp's 256
+    # The bound of the mean view. Operations: 12 at each of a warp's 128
     # pixels for every (candidate, warp) test the kernel's cull leaves, as
     # the kernel counts them in this run. Bytes: the counts, the listed
     # candidate ids, one read of each table row they name, and one write

@@ -1,5 +1,6 @@
 // Device code shared by the two z-resolve kernels, raster_tile.cu and
-// raster_dense.cu: cp.async helpers and the exact per-warp corner cull.
+// raster_dense.cu: cp.async helpers, the exact per-warp corner cull, and
+// the test of one candidate at a thread's pixels.
 //
 // Why the cull is exact. Each form is computed as fl(fl(fl(a*px) +
 // fl(b*py)) + c), every op rounded to nearest. Rounding is monotone on
@@ -74,6 +75,71 @@ __device__ __forceinline__ float corner_max(float a, float b, float c,
   const float px = a >= 0.0f ? pxh : pxl;
   const float py = b >= 0.0f ? pyh : pyl;
   return __fadd_rn(__fadd_rn(__fmul_rn(a, px), __fmul_rn(b, py)), c);
+}
+
+// A candidate's 64-byte table row, read from shared memory: lanes
+// q0 = (a0, b0, c0, a1), q1 = (b1, c1, a2, b2), q2 = (c2, id, az, bz),
+// q3 = (cz, 0, 0, 0).
+struct Row {
+  float4 q0, q1, q2;
+  float q3x;
+};
+
+__device__ __forceinline__ Row load_row(const float4* rows, int c) {
+  return Row{rows[c * 4 + 0], rows[c * 4 + 1], rows[c * 4 + 2],
+             rows[c * 4 + 3].x};
+}
+
+// The smallest inv_z in a warp's buffer (every lane's rows), in every lane.
+template <int kRows>
+__device__ __forceinline__ float warp_min(const float (&invz)[kRows]) {
+  float lo = invz[0];
+#pragma unroll
+  for (int k = 1; k < kRows; ++k) lo = fminf(lo, invz[k]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    lo = fminf(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+  return lo;
+}
+
+// False only where the corner rule proves that candidate q passes at no
+// pixel centre of [pxl, pxh] x [pyl, pyh] whose buffer is at least lo.
+__device__ __forceinline__ bool may_pass(const Row& q, float pxl, float pxh,
+                                         float pyl, float pyh, float lo) {
+  return !(corner_max(q.q0.x, q.q0.y, q.q0.z, pxl, pxh, pyl, pyh) < 0.0f) &&
+         !(corner_max(q.q0.w, q.q1.x, q.q1.y, pxl, pxh, pyl, pyh) < 0.0f) &&
+         !(corner_max(q.q1.z, q.q1.w, q.q2.x, pxl, pxh, pyl, pyh) < 0.0f) &&
+         !(corner_max(q.q2.z, q.q2.w, q.q3x, pxl, pxh, pyl, pyh) <= lo);
+}
+
+// Candidate q at a thread's pixels (column centre px, row centres py[k]):
+// where it is inside (every w_i >= 0) and nearer (inv_z > invz[k], strict,
+// so the earlier candidate keeps a tie), it takes the pixel: invz[k] and
+// win[k] = value. Each x term is computed once for the column.
+template <int kRows>
+__device__ __forceinline__ void test_pixels(const Row& q, float px,
+                                            const float (&py)[kRows],
+                                            float (&invz)[kRows],
+                                            int (&win)[kRows], int value) {
+  const float ax0 = __fmul_rn(q.q0.x, px);
+  const float ax1 = __fmul_rn(q.q0.w, px);
+  const float ax2 = __fmul_rn(q.q1.z, px);
+  const float axz = __fmul_rn(q.q2.z, px);
+#pragma unroll
+  for (int k = 0; k < kRows; ++k) {
+    const float w0 = __fadd_rn(__fadd_rn(ax0, __fmul_rn(q.q0.y, py[k])),
+                               q.q0.z);
+    const float w1 = __fadd_rn(__fadd_rn(ax1, __fmul_rn(q.q1.x, py[k])),
+                               q.q1.y);
+    const float w2 = __fadd_rn(__fadd_rn(ax2, __fmul_rn(q.q1.w, py[k])),
+                               q.q2.x);
+    const float iz = __fadd_rn(__fadd_rn(axz, __fmul_rn(q.q2.w, py[k])),
+                               q.q3x);
+    const bool ok = (w0 >= 0.0f) & (w1 >= 0.0f) & (w2 >= 0.0f) &
+                    (iz > invz[k]);
+    invz[k] = ok ? iz : invz[k];
+    win[k] = ok ? value : win[k];
+  }
 }
 
 }  // namespace sm_raster

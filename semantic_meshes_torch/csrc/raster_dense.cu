@@ -103,11 +103,14 @@
 
 namespace {
 
-using sm_raster::corner_max;
 using sm_raster::cp_async16;
 using sm_raster::cp_async4;
 using sm_raster::cp_async_commit;
 using sm_raster::cp_async_wait_all;
+using sm_raster::load_row;
+using sm_raster::may_pass;
+using sm_raster::test_pixels;
+using sm_raster::warp_min;
 
 constexpr int kTileH = 16;
 constexpr int kTileW = 128;
@@ -403,54 +406,16 @@ raster_dense_kernel(const float4* __restrict__ table,
     const float4* r = rows[s];
 
     for (int cb = 0; cb < it.count; cb += 32) {
-      float lo = invz[0];
-#pragma unroll
-      for (int k = 1; k < kRowsPerThread; ++k) lo = fminf(lo, invz[k]);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        lo = fminf(lo, __shfl_xor_sync(kFull, lo, o));
+      const float lo = warp_min(invz);
       const int c = cb + lane;
-      bool live = false;
-      if (c < it.count) {
-        // lanes: q0 = (a0, b0, c0, a1), q1 = (b1, c1, a2, b2),
-        //        q2 = (c2, id, az, bz), q3 = (cz, 0, 0, 0)
-        const float4 q0 = r[c * kVecPerRow + 0];
-        const float4 q1 = r[c * kVecPerRow + 1];
-        const float4 q2 = r[c * kVecPerRow + 2];
-        const float q3x = r[c * kVecPerRow + 3].x;
-        live = !(corner_max(q0.x, q0.y, q0.z, pxl, pxh, pyl, pyh) < 0.0f) &&
-               !(corner_max(q0.w, q1.x, q1.y, pxl, pxh, pyl, pyh) < 0.0f) &&
-               !(corner_max(q1.z, q1.w, q2.x, pxl, pxh, pyl, pyh) < 0.0f) &&
-               !(corner_max(q2.z, q2.w, q3x, pxl, pxh, pyl, pyh) <= lo);
-      }
+      const bool live = c < it.count &&
+                        may_pass(load_row(r, c), pxl, pxh, pyl, pyh, lo);
       unsigned mask = __ballot_sync(kFull, live);
       tests += __popc(mask);
       while (mask) {
         const int cc = cb + __ffs(mask) - 1;
         mask &= mask - 1;
-        const float4 q0 = r[cc * kVecPerRow + 0];
-        const float4 q1 = r[cc * kVecPerRow + 1];
-        const float4 q2 = r[cc * kVecPerRow + 2];
-        const float q3x = r[cc * kVecPerRow + 3].x;
-        const float ax0 = __fmul_rn(q0.x, px);
-        const float ax1 = __fmul_rn(q0.w, px);
-        const float ax2 = __fmul_rn(q1.z, px);
-        const float axz = __fmul_rn(q2.z, px);
-#pragma unroll
-        for (int k = 0; k < kRowsPerThread; ++k) {
-          const float w0 =
-              __fadd_rn(__fadd_rn(ax0, __fmul_rn(q0.y, py[k])), q0.z);
-          const float w1 =
-              __fadd_rn(__fadd_rn(ax1, __fmul_rn(q1.x, py[k])), q1.y);
-          const float w2 =
-              __fadd_rn(__fadd_rn(ax2, __fmul_rn(q1.w, py[k])), q2.x);
-          const float iz =
-              __fadd_rn(__fadd_rn(axz, __fmul_rn(q2.w, py[k])), q3x);
-          const bool ok = (w0 >= 0.0f) & (w1 >= 0.0f) & (w2 >= 0.0f) &
-                          (iz > invz[k]);
-          invz[k] = ok ? iz : invz[k];
-          best[k] = ok ? cc : best[k];
-        }
+        test_pixels(load_row(r, cc), px, py, invz, best, cc);
       }
     }
 

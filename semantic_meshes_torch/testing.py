@@ -218,7 +218,7 @@ def dense_resolve_scene(name, device="cpu"):
 
 
 # scenes of tile_resolve_scene, for the tile z-resolve's (32, 128) tiles of
-# 16 x 16 warp rectangles: a tile over the 256-candidate cap, slivers along
+# 16 x 8 warp rectangles: a tile over the 256-candidate cap, slivers along
 # the rectangles' boundaries (with far-off-screen and overflowing
 # vertices), exact depth ties inside one rectangle and across two (with
 # permuted ids, so the earlier list position wins, not the smaller id), a
@@ -226,21 +226,22 @@ def dense_resolve_scene(name, device="cpu"):
 TILE_SCENES = ("cap", "slivers", "ties", "ragged", "band", "empty")
 
 
-def _slivers(rng, n, box, step=16):
-    """n thin triangles lying along the lines x = k * step and y = k *
-    step inside box = (x0, y0, x1, y1), each a fraction of a pixel wide."""
+def _slivers(rng, n, box, col_step=16, row_step=8):
+    """n thin triangles lying along the lines x = k * col_step and y = k *
+    row_step inside box = (x0, y0, x1, y1), each a fraction of a pixel
+    wide."""
     x0, y0, x1, y1 = box
     p = np.zeros((n, 3, 2))
     for i in range(n):
         along = rng.uniform(5.0, 60.0)
         width = rng.uniform(0.05, 0.9)
         if i % 2:  # vertical, on a column boundary
-            x = step * rng.integers(1, max(2, (x1 - x0) // step)) + x0
+            x = col_step * rng.integers(1, max(2, (x1 - x0) // col_step)) + x0
             y = rng.uniform(y0, y1)
             p[i] = [[x - width / 2, y], [x + width / 2, y + 0.3],
                     [x, y + along]]
         else:  # horizontal, on a row boundary
-            y = step * rng.integers(1, max(2, (y1 - y0) // step)) + y0
+            y = row_step * rng.integers(1, max(2, (y1 - y0) // row_step)) + y0
             x = rng.uniform(x0, x1)
             p[i] = [[x, y - width / 2], [x + along, y], [x + 0.2,
                                                          y + width / 2]]
@@ -269,7 +270,7 @@ def tile_resolve_scene(name, device="cpu"):
     elif name == "ties":  # copies of one triangle inside one rectangle and
         # of one across two rectangles (and a band boundary), each copy
         # listed at several positions
-        one = np.array([[[2, 2], [13, 3], [5, 13]]], np.float64)
+        one = np.array([[[2, 1], [13, 2], [5, 6]]], np.float64)
         two = np.array([[[10, 10], [40, 12], [20, 25]]], np.float64)
         other, oz = _screen_tris(rng, 40, (0, 0, width, height), 25.0)
         p = np.concatenate([one, other[:10], two, one, other[10:30], two,

@@ -2,11 +2,13 @@
 the CPU without the card.
 
 The kernel splits each (32, 128) tile by pixels: a warp owns a 16 x 8
-rectangle (16 columns, 8 rows) and scans the tile's whole candidate list in order, in batches
-of 32; per batch it culls each candidate by the corner rule against the
-rectangle (the edge forms, and the inverse-depth plane against the
-smallest inv_z in the warp's buffer at the batch's start), then tests the
-survivors at its pixels in list order. `warp_scan` does the same in plain
+rectangle (16 columns, 8 rows) and scans the tile's whole candidate list
+in order, in batches of 32; per batch it culls each candidate by the
+corner rule against the rectangle (the edge forms, and the inverse-depth
+plane against the smallest inv_z in the warp's buffer at the batch's
+start), then tests the survivors at its pixels in list order. The list
+itself is staged once per CTA, which changes nothing the warps compute.
+`warp_scan` does the same in plain
 torch; it must equal the serial scan of the whole list
 (tile_kernel.resolve_tiles_plain) bit for bit, whatever the cull skips.
 The cull itself is proved by the hypothesis tests of
@@ -172,8 +174,9 @@ def test_kernel_constants_match_the_source():
     assert 32 // RW * int(const("kRowsPerThread")) == RH
     assert int(const("kBatch")) == BATCH
     assert (TILE_H // RH) * (TILE_W // RW) == tile_kernel.WARPS
+    # the cull and the pixel test are the shared ones
     assert '#include "raster_common.cuh"' in src
-    assert "corner_max(" in src
+    assert "may_pass(" in src and "test_pixels(" in src
 
 
 @pytest.mark.parametrize("rect", [0, 5, 8, 19, 31])
