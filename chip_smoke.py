@@ -588,12 +588,13 @@ def tile_counts_only(args, keep):
     return (table, cand, new, *rest)
 
 
-def rect_meets(args, cols=16, rows=8):
-    """Per view, from the table: the (candidate, cols x rows rectangle)
-    pairs whose three edge forms pass the corner test at the rectangle
-    (the kernel's cull without its depth test; the kernel's warps own
-    16 x 8 rectangles), and the most of them any one rectangle has. Forms
-    are rounded op by op, as the kernels do."""
+def rect_meets(args):
+    """Per view, from the table: the (candidate, warp rectangle) pairs
+    whose three edge forms pass the corner test at the rectangle (the
+    kernel's cull without its depth test; a warp owns 16 columns x 8
+    rows), and the most of them any one rectangle has. Forms are rounded
+    op by op, as the kernels do."""
+    cols, rows = 16, 8
     table, cand, counts, y_offset, nbx, _, _ = args
     B, N = cand.shape
     params = table[cand.long()]  # (B, N, 16)

@@ -6,11 +6,11 @@ rectangle (16 columns, 8 rows) and scans the tile's whole candidate list
 in order, in batches of 32; per batch it culls each candidate by the
 corner rule against the rectangle (the edge forms, and the inverse-depth
 plane against the smallest inv_z in the warp's buffer at the batch's
-start), then tests the survivors at its pixels in list order. The list
-itself is staged once per CTA, which changes nothing the warps compute.
-`warp_scan` does the same in plain
-torch; it must equal the serial scan of the whole list
-(tile_kernel.resolve_tiles_plain) bit for bit, whatever the cull skips.
+start), then tests the survivors at its pixels in list order. (The list
+itself is staged once per CTA, which changes nothing the warps compute.)
+`warp_scan` does the same in plain torch; it must equal the serial scan
+of the whole list (tile_kernel.resolve_tiles_plain) bit for bit, whatever
+the cull skips.
 The cull itself is proved by the hypothesis tests of
 tests/test_torch_dense_split.py, whose rectangles include 16 x 8 ones and
 the 32-row tiles' y offsets.
