@@ -29,6 +29,17 @@ TILE_H, TILE_W = dense_kernel.TILE_H, dense_kernel.TILE_W
 _MASK32 = 0xFFFFFFFF
 
 
+@pytest.fixture(autouse=True)
+def one_torch_thread():
+    """The scans below are thousands of small torch ops; beside other test
+    workers on the same cores, a pool of intra-op threads per op waits on
+    the scheduler at every op, so each test runs on one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _item_scan(params, first, n, px, py, state=None):
     """Serial scan of one work item: params (B, K, 16) rows, n (B,) live
     candidates or a (B, K) mask of them, px and py pixel centres of B

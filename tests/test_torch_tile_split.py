@@ -24,7 +24,8 @@ import torch
 
 from semantic_meshes_torch import _build, testing
 from semantic_meshes_torch.rasterize import tile_kernel
-from test_torch_dense_split import _item_scan, _random_lists
+from test_torch_dense_split import (  # noqa: F401 (an autouse fixture)
+    _item_scan, _random_lists, one_torch_thread)
 
 TILE_H, TILE_W = tile_kernel.TILE_H, tile_kernel.TILE_W
 RW, RH = 16, 8  # a warp's rectangle: RW columns x RH rows
@@ -56,7 +57,7 @@ def warp_scan(table, cand, counts, y_offset, nbx, height, width):
     n = counts.long().repeat_interleave(R)
     state = None
     tests = 0
-    for cb in range(0, N, BATCH):
+    for cb in range(0, int(counts.max()) if B else 0, BATCH):
         lo = (torch.zeros(B * R) if state is None
               else state[0].amin(dim=(1, 2)))
         p = params[:, cb:cb + BATCH]
@@ -69,7 +70,7 @@ def warp_scan(table, cand, counts, y_offset, nbx, height, width):
                     <= lo[:, None]))
         tests += int(live.sum())
         state = _item_scan(p, cb, live, px, py, state)
-    if state is None:  # no slots at all
+    if state is None:  # no candidate in any tile
         state = (torch.zeros((B * R, RH, RW)),
                  torch.full((B * R, RH, RW), -1, dtype=torch.int64))
     invz, pos = state
