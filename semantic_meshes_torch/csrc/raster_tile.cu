@@ -19,7 +19,7 @@
 // tile holds ~8 candidates, the heaviest ~130, thin slivers of a cube face
 // seen edge-on), and a tile owned by one CTA that tests every candidate at
 // every one of its 4096 pixels left the kernel as slow as its heaviest
-// tiles (PERF.md, PR 4).
+// tiles (PERF.md, raster_tile's redesign).
 // 1. Split each tile by pixels. A warp owns 16 columns x 8 rows of a tile
 //    (lane l: column l % 16, rows l / 16 + 2k, k < 4, so each form's x term
 //    stays out of the pixel loop), 32 rectangles a tile. A CTA of 8 warps
@@ -41,7 +41,7 @@
 // tiles), and the CTA-staged list beat per-warp double-buffered batches
 // (one wait instead of one per batch, and 8x fewer row reads from L2); a
 // candidate split of heavy tiles was not needed: no rectangle keeps more
-// than ~45 survivors (PERF.md, PR 4).
+// than ~45 survivors (PERF.md, raster_tile's redesign).
 //
 // What bounds it on the H100. chip_smoke.py's bound is the larger of two
 // times. fp32 ALU work: per candidate and pixel the four affine forms cost
