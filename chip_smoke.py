@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py [--against DIR ...]
 
-Drives the port's main paths through their public entry points, at three
+Drives the port's main paths through their public entry points, at five
 of bench.py's presets (random probabilities from a seed, made on the
 card), in phases; each phase prints a line and raises on failure:
 
@@ -16,8 +16,9 @@ card), in phases; each phase prints a line and raises on failure:
    testing.TILE_SCENES, raster_dense on every view of
    `scannet` (twice, bit-identical) and of `default` forced through the
    dense rasterizer (ids equal, depths bit-equal, overflow 0), at the
-   budgets the main path probes, and on the hand-binned scenes of
-   testing.DENSE_SCENES;
+   budgets the main path probes, on the hand-binned scenes of
+   testing.DENSE_SCENES, and on every view of `texels` (its reordered
+   faces, its probed budget);
 4. the main paths, each with every launch counter set to 0 just before it
    and read just after:
    - `large` (cube s=16, 3072 triangles, 8 views of 2048x1536, 19
@@ -32,6 +33,20 @@ card), in phases; each phase prints a line and raises on failure:
    - `dense` (cube s=204, 499392 triangles, 4 views of 1024x768, 19
      classes): plan_fuse splits (uni-slot prefix), and fuse_views_planned
      in original face order equals the unsplit plan's fusion;
+   - texel mode: reorder_faces_for_texels and _texel_resolutions on the
+     card equal the CPU's on every face at `texels` and `texels01`; at
+     `texels` (cube s=64, 49152 triangles, 4 views of 1024x768, 19
+     classes, 2.0 texels per pixel: 809984 texels) and `texels01` (cube
+     s=91, 8 views of 1296x968, 40 classes, 0.1: 99372 texels, one per
+     triangle) texels -> prepare -> render -> render_many ->
+     MeshAggregator sum/summax/mul -> get -> colours, then
+     fuse_views_texels under plan_fuse(allow_split=False) == the per-view
+     path, twice bit-identical; overflow 0; raster_dense launches == views
+     rasterized with pairs, none of raster_tile; every texel id < P; the
+     card's texel shader == the CPU's on every view, from the card's
+     triangle ids; at `texels01` each id == first_texel_index[face]; a
+     texel renderer at `default` (2.0 texels per pixel) through
+     raster_tile, one launch a view;
 5. times with CUDA events (medians after warm-up): each kernel's time
    per view both as `ms`, from replays of a CUDA graph of its launches
    (the device's own time), and as `launched_ms`, with Python launching
@@ -43,7 +58,12 @@ card), in phases; each phase prints a line and raises on failure:
    empty, raster_dense with its work items; the pieces of a dense view at
    `scannet`, the routing cost model's coefficients they give, one
    fuse_views_planned batch per preset as `rasterize_fuse_throughput`,
-   and one traced batch per preset (idle share, top device kernels).
+   and one traced batch per preset (idle share, top device kernels); at
+   the texel presets the pieces of a view (setup + dense binning,
+   raster_dense, the texel shader, fusion), one fuse_views_texels batch
+   as `rasterize_fuse_throughput` and one traced batch. The kernel line's
+   `launches` counts `large` and `scannet`; `launches_by_path` every
+   path's run.
 
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
@@ -79,7 +99,14 @@ SCENES = {
     "large": (16, 8, 2048, 1536, 19),
     "dense": (204, 4, 1024, 768, 19),
     "scannet": (91, 8, 1296, 968, 40),
+    "texels": (64, 4, 1024, 768, 19),
+    "texels01": (91, 8, 1296, 968, 40),
 }
+# texels_per_pixel of bench.py's texel presets (bench.py:67), and of the
+# texel check at `default`
+TPP = {"texels": 2.0, "texels01": 0.1, "default": 2.0}
+# texel primitives the sizing gives at the texel presets' cameras
+TEXEL_P = {"texels": 809984, "texels01": 99372}
 IEW = 0.5
 SEED = 0
 # H100 SXM peaks (NVIDIA data sheet): non-tensor fp32 and HBM3 bandwidth.
@@ -368,12 +395,15 @@ def read_launches():
             "raster_dense": dense_kernel.launches}
 
 
-def fuse_and_save(name, mesh, rendered, probs, classes, workdir, device):
+def fuse_and_save(name, mesh, rendered, probs, classes, workdir, device,
+                  texels=None):
     """MeshAggregator sum/summax/mul over rendered (W, H) id images ->
-    get -> palette colours -> Ply.save -> reload. Returns the sum state."""
+    get -> palette colours -> Ply.save -> reload. Returns the sum state.
+    texels: the number of texel primitives of a texel renderer's images;
+    their colours are per texel, so no PLY is written."""
     import semantic_meshes_torch as smt
 
-    T = len(mesh.faces)
+    T = len(mesh.faces) if texels is None else texels
     palette = smt.utils.class_palette(classes)
     fused = None
     for agg_name in ("sum", "summax", "mul"):
@@ -393,6 +423,8 @@ def fuse_and_save(name, mesh, rendered, probs, classes, workdir, device):
             fused = agg.state.clone()
         colors = palette[out.argmax(-1).cpu().numpy()]
         colors[~seen.cpu().numpy()] = 0
+        if texels is not None:
+            continue
         out_path = os.path.join(workdir, f"{name}_{agg_name}.ply")
         mesh.save(out_path, colors)
         back = smt.io.ply.read_ply(out_path)["face"].data
@@ -534,6 +566,211 @@ def dense_preset(device):
     )
     return dict(vertices=vertices, faces=faces, probs=probs, plan=plans[True],
                 rot=rot, trans=trans, fl=fl, pp=pp, launches=launches)
+
+
+def texel_renderer(name, device):
+    """A TexelsRenderer of scene `name` at its texels_per_pixel, and the
+    scene's cameras."""
+    import semantic_meshes_torch as smt
+
+    vertices, faces, cams = scene(name)
+    mesh = SimpleNamespace(vertices=vertices, faces=faces)
+    return smt.render.texels(mesh, cams, TPP[name], device=device), cams
+
+
+def texel_dense_vs_plain(device):
+    """Phase 3, raster_dense on every view of `texels` (its reordered
+    faces, at the budget its renderer probes)."""
+    from semantic_meshes_torch.rasterize import dense_kernel
+
+    renderer, cams = texel_renderer("texels", device)
+    renderer.prepare(cams)
+    cap = renderer.dense_cap_policy._cap[(cams[0].height, cams[0].width)]
+    max_err = 0.0
+    for k, cam in enumerate(cams):
+        args, _, overflow = dense_view_inputs(renderer.face_vertices, cam,
+                                              cap, device)
+        if args is None:
+            raise AssertionError(f"texels: zero pair budget {cap}")
+        zk, ik = dense_kernel.resolve_dense_cuda(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        torch.cuda.synchronize()
+        if int(overflow) != 0:
+            raise AssertionError(f"texels view {k}: overflow {int(overflow)}")
+        max_err = max(max_err, assert_same_image("texels", k, zk, ik, zp,
+                                                 ip))
+    phase(f"phase 3: raster_dense == plain at texels (reordered faces, "
+          f"budget {cap}): {len(cams)} views, ids equal, depths bit-equal, "
+          "overflow 0")
+    return max_err
+
+
+def texel_setup_check(device):
+    """Phase 4: reorder_faces_for_texels and _texel_resolutions on the card
+    against the same functions on the CPU at the texel presets, on every
+    face. The card's reorder feeds every texel id: a difference fails the
+    run."""
+    from semantic_meshes_torch import geometry, render
+
+    for name in ("texels", "texels01"):
+        vertices, faces, cams = scene(name)
+        out = []
+        for d in (device, torch.device("cpu")):
+            v = torch.as_tensor(vertices, device=d)
+            f = torch.as_tensor(faces.astype(np.int64), device=d)
+            out.append((geometry.reorder_faces_for_texels(v, f).cpu(),
+                        render._texel_resolutions(v, f, cams,
+                                                  TPP[name]).cpu()))
+        (card_f, card_r), (cpu_f, cpu_r) = out
+        moved = int((card_f != cpu_f).any(1).sum())
+        resized = int((card_r != cpu_r).sum())
+        if moved or resized:
+            raise AssertionError(
+                f"{name}: the card's texel setup differs from the CPU's: "
+                f"{moved} faces reordered otherwise, {resized} resolutions")
+        phase(f"phase 4: texel setup at {name}: reorder_faces_for_texels and "
+              f"_texel_resolutions on the card equal the CPU's on all "
+              f"{len(faces)} faces (0 differ)")
+
+
+def texel_main_path(name, device, workdir):
+    """Phase 4 at a texel preset, through the public API (texels ->
+    prepare -> render -> render_many -> MeshAggregator sum/summax/mul ->
+    get -> colours; fuse_views_texels under a texel plan, twice), launch
+    counters read around it. Returns what phase 5 reuses."""
+    import semantic_meshes_torch as smt
+
+    sub, n_views, width, height, classes = SCENES[name]
+    vertices, faces = smt.testing.make_cube(subdivisions=sub)
+    path = os.path.join(workdir, f"{name}.ply")
+    smt.io.ply.write_mesh(path, vertices, faces)
+    mesh = smt.data.Ply(path)
+    cams = smt.testing.make_ring_cameras(num_views=n_views, width=width,
+                                         height=height)
+    probs = device_probs(n_views, height, width, classes, device)
+    rot, trans, fl, pp = smt.data.stack_cameras(cams)
+
+    reset_launches()
+    renderer = smt.render.texels(mesh, cams, TPP[name], device=device)
+    P = renderer.getPrimitivesNum()
+    renderer.prepare(cams)
+    cap = renderer.dense_cap_policy._cap.get((height, width))
+    rendered = [renderer.render(cam)[0] for cam in cams]
+    many, _ = renderer.render_many(cams)
+    rasterized = [cap] * (2 * n_views)
+    for ids in rendered:
+        if ids.dtype != torch.uint32 or tuple(ids.shape) != (width, height):
+            raise AssertionError(f"render() gave {ids.dtype} {ids.shape}")
+    if not torch.equal(many, torch.stack(rendered)):
+        raise AssertionError(f"{name}: render_many != render")
+    overflow = renderer.overflow_total()
+    if overflow != 0:
+        raise AssertionError(f"overflow {overflow} at {name}")
+    fused_sum = fuse_and_save(name, mesh, rendered, probs, classes, workdir,
+                              device, texels=P)
+    plan = smt.distributed.plan_fuse(
+        renderer.vertices, renderer.faces, rot, trans, fl, pp, height=height,
+        width=width, allow_split=False, device=device)
+
+    def batch():
+        return smt.distributed.fuse_views_texels(
+            renderer.vertices, plan.faces, renderer.resolutions,
+            renderer.first_texel_index, rot, trans, fl, pp, probs, IEW,
+            num_primitives=P, aggregator="sum", height=height, width=width,
+            dense_e_cap=plan.dense_e_cap, device=device)
+
+    runs = []
+    for _ in range(2):
+        acc, ov = batch()
+        if int(ov) != 0:
+            raise AssertionError(f"{name}: fuse_views_texels overflow "
+                                 f"{int(ov)}")
+        runs.append(acc)
+    rasterized += [plan.dense_e_cap] * (2 * n_views)
+    torch.cuda.synchronize()
+    launches = read_launches()
+
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError(f"{name}: repeated fusion is not bit-identical")
+    expect = sum(1 for c in rasterized if c is not None and c[0] > 0)
+    if launches["raster_dense"] != expect or launches["raster_tile"] != 0:
+        raise AssertionError(f"{name}: launches {launches} for {expect} "
+                             "views rasterized with pairs")
+    if not torch.allclose(runs[0], fused_sum, rtol=1e-6, atol=0.0):
+        err = float((runs[0] - fused_sum).abs().max())
+        raise AssertionError(f"{name}: planned != per-view (max |err| {err})")
+    if P != TEXEL_P[name]:
+        raise AssertionError(f"{name}: {P} texels, expected {TEXEL_P[name]}")
+    ids = many.view(torch.int32)
+    covered = ids >= 0
+    if int(ids.max()) >= P or not covered.any():
+        raise AssertionError(f"{name}: texel ids out of [0, {P})")
+    r = renderer.resolutions
+    if name == "texels01" and not bool((r == 1).all()):
+        raise AssertionError(f"texels01: resolutions {int(r.min())}-"
+                             f"{int(r.max())}, expected 1 everywhere")
+    tables = (renderer.vertices, renderer.faces, renderer.resolutions,
+              renderer.first_texel_index)
+    cpu_tables = [t.cpu() for t in tables]
+    for k, cam in enumerate(cams):
+        tri = renderer._rasterize(cam, cap)[0]
+        # the shader on the card against the same shader on the CPU, from
+        # the card's triangle ids and the renderer's tables
+        card = smt.render._texel_prim_image(*tables[:2], *cam_args(cam), tri,
+                                            *tables[2:], P)
+        cpu = smt.render._texel_prim_image(*cpu_tables[:2], *cam_args(cam),
+                                           tri.cpu(), *cpu_tables[2:], P)
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"{name} view {k}: the card's texel shader "
+                                 f"differs from the CPU's on "
+                                 f"{int((card.cpu() != cpu).sum())} pixels")
+        if name == "texels01":
+            # r = 1 everywhere: a pixel's texel is its triangle's first
+            want = torch.where(tri >= 0, renderer.first_texel_index[
+                tri.clamp(min=0).long()], -1)
+            if not torch.equal(ids[k], want.t()):
+                raise AssertionError(f"texels01 view {k}: texel id != "
+                                     "first_texel_index[face]")
+    phase(
+        f"phase 4: texel path at {name} ok: {n_views} views {width}x"
+        f"{height}, {len(faces)} triangles, tpp {TPP[name]}, P {P} texels "
+        f"(resolution {int(r.min())}-{int(r.max())}, "
+        f"{int((r == 0).sum())} triangles without texels), {classes} "
+        f"classes; dense budget {cap} (render), plan {plan.dense_e_cap} "
+        f"split_k {plan.split_k}; prepare + render + render_many, "
+        f"sum/summax/mul fused, colours, overflow 0, launches {launches} == "
+        f"{expect} views rasterized with pairs, every texel id < P, the "
+        f"card's shader == the CPU's on every view"
+        f"{', each == first_texel_index[face]' if name == 'texels01' else ''}"
+        f", fuse_views_texels == per-view (bit-equal: "
+        f"{torch.equal(runs[0], fused_sum)}), repeated fusion bit-identical"
+    )
+    return dict(renderer=renderer, cams=cams, probs=probs, plan=plan,
+                cap=cap, batch=batch, launches=launches, faces=faces,
+                primitives=P)
+
+
+def texel_tile_check(device):
+    """Phase 4: a texel renderer at `default` (972 faces) rasterizes through
+    raster_tile: one launch per view, none of raster_dense, ids within P,
+    overflow 0."""
+    reset_launches()
+    renderer, cams = texel_renderer("default", device)
+    P = renderer.getPrimitivesNum()
+    ids = torch.stack([renderer.render(cam)[0] for cam in cams]).view(
+        torch.int32)
+    overflow = renderer.overflow_total()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != {"raster_tile": len(cams), "raster_dense": 0}:
+        raise AssertionError(f"default texels: launches {launches}")
+    if overflow != 0 or int(ids.max()) >= P or not (ids >= 0).any():
+        raise AssertionError(f"default texels: overflow {overflow}, ids up "
+                             f"to {int(ids.max())} of {P}")
+    phase(f"phase 4: texel check at default ok: {len(cams)} views through "
+          f"raster_tile, launches {launches}, P {P}, ids within P, "
+          "overflow 0")
+    return launches
 
 
 def bound(ops, nbytes, ops_per_s=PEAK_FP32_OPS):
@@ -774,8 +1011,11 @@ def dense_times(ctx, device, card, against):
                        dense._cdiv(width, dense.TILE_W), height, width))
 
     kernel = dense_kernel_row("scannet", inputs, against, card)
+    # one run of the 8 views: at ~1-1.5 s a view the plain version is
+    # 10^4 times the kernel, and five runs took ~50 s of the script's time
     plain_ms = cuda_time_ms(lambda: [dense_kernel.resolve_dense_plain(*a)
-                                     for a in inputs], reps=3) / n_views
+                                     for a in inputs], reps=1,
+                            warmup=0) / n_views
     ids = [dense_kernel.resolve_dense_cuda(*a)[1] for a in inputs]
     fusion_ms = cuda_time_ms(
         lambda: [fusion._accumulate_view(ids[k], ctx["probs"][k], None, IEW,
@@ -888,7 +1128,7 @@ def dense_kernel_row(label, inputs, against, card):
     return out
 
 
-def device_busy(label, fn, batch_ms, card):
+def device_busy(label, entry, fn, batch_ms, card):
     """One traced batch: the device's busy time (sum of the kernels' own
     device times, from torch.profiler), its share of the untraced batch
     time, and the kernels that take the most. Diagnostic only: a profiler
@@ -925,7 +1165,7 @@ def device_busy(label, fn, batch_ms, card):
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     phase(
-        f"phase 5 [{card}]: {label}, one traced fuse_views_planned batch: "
+        f"phase 5 [{card}]: {label}, one traced {entry} batch: "
         f"device busy {busy_ms:.6f} ms of the untraced {batch_ms:.6f} ms "
         f"(idle share {1 - busy_ms / batch_ms:.6f}); top device time: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.6f} ms "
@@ -934,30 +1174,34 @@ def device_busy(label, fn, batch_ms, card):
 
 
 def batch_throughput(name, ctx, device, card):
-    """rasterize_fuse_throughput of one fuse_views_planned batch, and one
-    traced batch."""
+    """rasterize_fuse_throughput of one batch (fuse_views_planned, or a
+    texel preset's fuse_views_texels), and one traced batch."""
     import semantic_meshes_torch as smt
 
     _, n_views, width, height, classes = SCENES[name]
     T = len(ctx["faces"])
+    P = ctx.get("primitives", T)
+    entry = "fuse_views_texels" if "batch" in ctx else "fuse_views_planned"
 
-    def fused_batch():
+    def planned_batch():
         return smt.distributed.fuse_views_planned(
             ctx["plan"], ctx["vertices"], ctx["rot"], ctx["trans"],
             ctx["fl"], ctx["pp"], ctx["probs"], IEW, num_primitives=T,
             aggregator="sum", height=height, width=width, device=device)
 
+    fused_batch = ctx.get("batch", planned_batch)
     batch_ms = cuda_time_ms(fused_batch, reps=5)
     mpix_s = n_views * width * height / 1e6 / (batch_ms / 1e3)
-    phase(f"phase 5 [{card}]: {name}, fuse_views_planned batch "
-          f"{batch_ms:.6f} ms for {n_views} views")
-    device_busy(name, fused_batch, batch_ms, card)
+    phase(f"phase 5 [{card}]: {name}, {entry} batch {batch_ms:.6f} ms for "
+          f"{n_views} views")
+    device_busy(name, entry, fused_batch, batch_ms, card)
     phase(json.dumps({
         "metric": "rasterize_fuse_throughput", "value": mpix_s,
         "unit": "MPix/s", "card": card,
         "detail": {"preset": name, "views": n_views,
                    "resolution": [width, height], "triangles": T,
-                   "classes": classes, "batch_ms": batch_ms,
+                   "primitives": P, "classes": classes,
+                   "batch_ms": batch_ms, "entry": entry,
                    "dense_e_cap": ctx["plan"].dense_e_cap},
     }))
 
@@ -983,6 +1227,64 @@ def large_times(ctx, device, card):
         reps=10) / n_views
     phase(f"phase 5 [{card}]: large, per view: setup+binning "
           f"{setup_ms:.6f} ms, fusion (sum) {fusion_ms:.6f} ms")
+
+
+def texel_times(name, ctx, device, card):
+    """Per view at a texel preset, each as launched from Python (CUDA
+    events, medians): setup + dense binning (setup, classify, sort
+    binning, the micro path and the table: dense.resolve_inputs),
+    raster_dense, the texel shader (also from graph replays, with the
+    bound of its bytes) and fusion (sum over the texels)."""
+    from semantic_meshes_torch import fusion, render
+    from semantic_meshes_torch.rasterize import dense_kernel
+
+    _, n_views, width, height, classes = SCENES[name]
+    renderer, cams, cap = ctx["renderer"], ctx["cams"], ctx["cap"]
+    P = renderer.getPrimitivesNum()
+    fv = renderer.face_vertices
+    setup_ms = cuda_time_ms(
+        lambda: [dense_view_inputs(fv, cam, cap, device) for cam in cams],
+        reps=5) / n_views
+    inputs = [dense_view_inputs(fv, cam, cap, device)[0] for cam in cams]
+    kernel_ms = cuda_time_ms(
+        lambda: [dense_kernel.resolve_dense_cuda(*a) for a in inputs],
+        reps=10) / n_views
+    tris = [dense_kernel.resolve_dense_cuda(*a)[1] for a in inputs]
+    # camera arrays on the card, so the shader's launches can be captured
+    cam_t = [tuple(torch.as_tensor(a, device=device) for a in cam_args(c))
+             for c in cams]
+
+    def shade_all():
+        return [render._texel_prim_image(
+            renderer.vertices, renderer.faces, *ca, tri, renderer.resolutions,
+            renderer.first_texel_index, P) for ca, tri in zip(cam_t, tris)]
+
+    shader_ms = cuda_time_ms(shade_all, reps=10) / n_views
+    shader_graph_ms = graph_time_ms(shade_all, reps=10) / n_views
+    prims = shade_all()
+    fusion_ms = cuda_time_ms(
+        lambda: [fusion._accumulate_view(prims[k], ctx["probs"][k], None, IEW,
+                                         num_primitives=P, aggregator="sum")
+                 for k in range(n_views)], reps=5) / n_views
+    # the shader's least bytes: each input read once (the triangle-id
+    # image, the vertices, the int64 faces, the resolutions and first
+    # texel indices) and the texel-id image written once
+    nbytes = (width * height * 8 + renderer.vertices.numel() * 4
+              + renderer.faces.numel() * 8 + len(renderer.faces) * 8)
+    shader_bound = nbytes / PEAK_BYTES_S * 1e3
+    phase(
+        f"phase 5 [{card}]: {name} ({n_views} views {width}x{height}, "
+        f"{len(renderer.faces)} triangles, {P} texels, budget {cap}), per "
+        f"view: setup + dense binning + micro path + table {setup_ms:.6f} "
+        f"ms, raster_dense {kernel_ms:.6f} ms, texel shader {shader_ms:.6f} "
+        f"ms launched ({shader_graph_ms:.6f} ms in graph replays; its bytes "
+        f"bound {shader_bound:.6f} ms for {nbytes} bytes), fusion (sum, "
+        f"{classes} classes over {P} texels) "
+        f"{fusion_ms:.6f} ms"
+    )
+    return dict(setup_ms=setup_ms, kernel_ms=kernel_ms, shader_ms=shader_ms,
+                shader_graph_ms=shader_graph_ms, shader_bound_ms=shader_bound,
+                fusion_ms=fusion_ms)
 
 
 def parse_args():
@@ -1033,11 +1335,15 @@ def main():
                   ": " + " | ".join(report))
 
     tile_err = tile_vs_plain(device)
-    dense_err = dense_vs_plain(device)
+    dense_err = max(dense_vs_plain(device), texel_dense_vs_plain(device))
 
     with tempfile.TemporaryDirectory() as workdir:
         large = main_path("large", device, workdir)
         scannet = main_path("scannet", device, workdir)
+        texel_setup_check(device)
+        texels = {name: texel_main_path(name, device, workdir)
+                  for name in ("texels", "texels01")}
+    default_texels = texel_tile_check(device)
     dense_ctx = dense_preset(device)
 
     tile_times("default", device, card, against)
@@ -1050,17 +1356,29 @@ def main():
     large_times(large, device, card)
     batch_throughput("large", large, device, card)
     batch_throughput("scannet", scannet, device, card)
-    launches = {"raster_tile": large["launches"],
-                "raster_dense": scannet["launches"]}
+    by_path = {
+        "raster_tile": {"large": large["launches"],
+                        "default texels": default_texels["raster_tile"]},
+        "raster_dense": {"scannet": scannet["launches"],
+                         "dense": dense_ctx["launches"]["raster_dense"]}}
+    for name, ctx in texels.items():
+        for kernel, n in ctx["launches"].items():
+            by_path[kernel][name] = n
     del large, scannet
     batch_throughput("dense", dense_ctx, device, card)
+    del dense_ctx
+    for name, ctx in texels.items():
+        texel_times(name, ctx, device, card)
+        batch_throughput(name, ctx, device, card)
+    del texels
 
     kernels = [{
         "name": "raster_tile",
         "route": "cuda",
         "source": "semantic_meshes_torch/csrc/raster_tile.cu",
         "replaces": "semantic_meshes/rasterize/pallas_kernel.py:92",
-        "launches": launches["raster_tile"],
+        "launches": by_path["raster_tile"]["large"],
+        "launches_by_path": by_path["raster_tile"],
         "max_abs_err": tile_err,
         **tile_row,
         # no single PyTorch call rasterizes triangles
@@ -1070,7 +1388,8 @@ def main():
         "route": "cuda",
         "source": "semantic_meshes_torch/csrc/raster_dense.cu",
         "replaces": "semantic_meshes/rasterize/dense.py:530",
-        "launches": launches["raster_dense"],
+        "launches": by_path["raster_dense"]["scannet"],
+        "launches_by_path": by_path["raster_dense"],
         "max_abs_err": dense_err,
         **dense_row,
         "library_ms": None,

@@ -38,6 +38,17 @@ def ply(mesh) -> Ply:
     return out
 
 
+def texel_params(renderer):
+    """A `semantic_meshes.render.TexelsRenderer`'s (or look-alike's) texel
+    tables as numpy arrays: (reordered faces (T, 3) int32, resolutions (T,)
+    int32, first_texel_index (T,) int32, getPrimitivesNum()), the inputs
+    of render._texel_prim_image and distributed.fuse_views_texels."""
+    return (np.asarray(renderer.faces, np.int32),
+            np.asarray(renderer.resolutions, np.int32),
+            np.asarray(renderer.first_texel_index, np.int32),
+            int(renderer.getPrimitivesNum()))
+
+
 def mesh_aggregator(agg, device="cuda") -> fusion.MeshAggregator:
     """A `semantic_meshes.fusion.MeshAggregator` as a port MeshAggregator:
     same primitives, classes, aggregator name, images_equal_weight and

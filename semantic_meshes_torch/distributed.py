@@ -2,11 +2,12 @@
 
 Counterpart of the single-device part of `semantic_meshes/distributed.py`:
 `render_and_accumulate`, `fuse_views`, `FusePlan`, `plan_fuse`,
-`fuse_views_planned` and `fuse_views_split`. The JAX package scans the
-views inside one compiled program; here `fuse_views` is a Python loop over
-views whose every step stays on the device (no host sync), with the (P, C)
-accumulator in device memory. Multi-device sharding and lens distortion
-(`resample_grid`, `lens_shared`) are not ported yet (see ROADMAP).
+`fuse_views_planned`, `fuse_views_split` and `fuse_views_texels`. The JAX
+package scans the views inside one compiled program; here each batched
+fusion is a Python loop over views whose every step stays on the device
+(no host sync), with the (P, C) accumulator in device memory. Multi-device
+sharding and lens distortion (`resample_grid`, `lens_shared`,
+`distortions`, `shared_lens`) are not ported yet (see ROADMAP).
 
 Layout: probs here are (N, H, W, C), not the public API's (W, H).
 """
@@ -17,30 +18,37 @@ import torch
 
 from . import fusion
 from . import rasterize as rast
+from . import render
 from .data import resolve_device
 
 
 def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
                           images_equal_weight, *, num_primitives, aggregator,
                           height, width, max_tris_per_tile=256,
-                          face_vertices=None, dense_e_cap=None, tri_ids=None,
-                          backend=None, device="cuda"):
+                          prim_transform=None, face_vertices=None,
+                          dense_e_cap=None, tri_ids=None, backend=None,
+                          device="cuda"):
     """One fused render+aggregate step on one view.
 
     camera_arrays: (rotation, translation, focal_lengths, principal_point).
     probs: (H, W, C); weights: optional (H, W). dense_e_cap: the dense
     rasterizer's probed budget (FusePlan); tri_ids: (T,) ids to emit per
-    face row (a split plan's original face ids). Returns ((P, C) fusion
-    delta, overflow int32 tensor): overflow counts the candidate pairs and
-    micro rows the rasterizer dropped under its budgets this view.
+    face row (a split plan's original face ids). prim_transform: optional
+    `fn(tri_index, depth, camera_arrays) -> (H, W) primitive ids` (the
+    texel shader); without it the triangle ids are the primitives. Returns
+    ((P, C) fusion delta, overflow int32 tensor): overflow counts the
+    candidate pairs and micro rows the rasterizer dropped under its budgets
+    this view.
     """
     rot, trans, fl, pp = camera_arrays
-    tri, _, overflow = rast.rasterize(
+    tri, depth, overflow = rast.rasterize(
         vertices, faces, rot, trans, fl, pp,
         height=height, width=width, max_tris_per_tile=max_tris_per_tile,
         face_vertices=face_vertices, dense_e_cap=dense_e_cap,
         tri_ids=tri_ids, backend=backend, device=device,
     )
+    if prim_transform is not None:
+        tri = prim_transform(tri, depth, camera_arrays)
     probs = fusion._as_f32(probs, device)
     if weights is not None:
         weights = fusion._as_f32(weights, device)
@@ -55,7 +63,7 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
                principal_points, probs, images_equal_weight, weights=None,
                prim_remap=None, *, num_primitives, aggregator, height, width,
                max_tris_per_tile=256, dense_e_cap=None, backend=None,
-               predict_fn=None, device="cuda"):
+               predict_fn=None, prim_transform=None, device="cuda"):
     """Render and fuse N views into one accumulator.
 
     rotations (N,3,3), translations (N,3), focal_lengths/principal_points
@@ -70,7 +78,8 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     rasterizer writes the ids into its tables, see rasterize.rasterize).
     dense_e_cap / backend: the dense budget and the backend (plan_fuse).
     predict_fn: optional per-view hook `(H, W, ...) -> (H, W, C)` probs;
-    `probs` then holds its inputs.
+    `probs` then holds its inputs. prim_transform: see
+    render_and_accumulate (fuse_views_texels passes its shader).
     """
     device = resolve_device(device)
     vertices = fusion._as_f32(vertices, device)
@@ -92,14 +101,63 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
             pr, None if weights is None else weights[i], images_equal_weight,
             num_primitives=num_primitives, aggregator=aggregator,
             height=height, width=width, max_tris_per_tile=max_tris_per_tile,
-            face_vertices=face_vertices, dense_e_cap=dense_e_cap,
-            tri_ids=prim_remap, backend=backend, device=device,
+            prim_transform=prim_transform, face_vertices=face_vertices,
+            dense_e_cap=dense_e_cap, tri_ids=prim_remap, backend=backend,
+            device=device,
         )
         acc = delta if acc is None else acc + delta
         overflow = overflow + ov
     if acc is None:
         raise ValueError("fuse_views needs at least one view")
     return acc, overflow
+
+
+def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
+                      rotations, translations, focal_lengths,
+                      principal_points, probs, images_equal_weight,
+                      weights=None, distortions=None, *, num_primitives,
+                      aggregator, height, width, max_tris_per_tile=256,
+                      clip_near=False, dense_e_cap=None, predict_fn=None,
+                      shared_lens=False, device="cuda"):
+    """Batched texel-mode fusion: fuse_views with the texel shader between
+    the rasterizer and the fusion, so the primitives are a TexelsRenderer's
+    texels (pass its reordered `faces`, `resolutions`, `first_texel_index`
+    and getPrimitivesNum()). Returns (accumulator (P, C), overflow int32
+    tensor), like fuse_views; no step syncs with the host.
+
+    dense_e_cap: the dense budget of `plan_fuse(..., allow_split=False)`
+    (texel tables are per face, so a texel plan never splits). predict_fn:
+    see fuse_views. Lens distortion (`distortions`, `shared_lens`) and
+    `clip_near` raise NotImplementedError (not ported yet)."""
+    if distortions is not None or shared_lens:
+        raise NotImplementedError(
+            "lens distortion: not ported yet, see ROADMAP")
+    if clip_near:
+        raise NotImplementedError(
+            "near-plane clipping: not ported yet, see ROADMAP")
+    device = resolve_device(device)
+    vertices = fusion._as_f32(vertices, device)
+    faces = torch.as_tensor(faces, dtype=torch.int64, device=device)
+    resolutions = torch.as_tensor(resolutions, dtype=torch.int32,
+                                  device=device)
+    first_texel_index = torch.as_tensor(first_texel_index,
+                                        dtype=torch.int32, device=device)
+
+    def shade(tri, _depth, camera_arrays):
+        return render._texel_prim_image(
+            vertices, faces, *camera_arrays, tri, resolutions,
+            first_texel_index, num_primitives)
+
+    # the cameras move to the device once; the rasterizer and the shader
+    # then read each view's slices in place
+    return fuse_views(
+        vertices, faces, *(fusion._as_f32(a, device) for a in (
+            rotations, translations, focal_lengths, principal_points)),
+        probs, images_equal_weight, weights, num_primitives=num_primitives,
+        aggregator=aggregator, height=height, width=width,
+        max_tris_per_tile=max_tris_per_tile, dense_e_cap=dense_e_cap,
+        predict_fn=predict_fn, prim_transform=shade, device=device,
+    )
 
 
 class FusePlan:

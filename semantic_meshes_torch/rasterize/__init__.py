@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from . import dense, dense_kernel, tile_kernel, tiles  # noqa: F401
+from .tiles import barycentrics_at_pixels  # noqa: F401
 
 DENSE_THRESHOLD = 16384
 BACKENDS = ("tile", "dense")

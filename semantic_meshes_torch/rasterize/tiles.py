@@ -3,8 +3,9 @@
 Counterpart of the setup and binning half of
 `semantic_meshes/rasterize/xla.py` (`_setup_from_projected`,
 `setup_from_face_vertices`, `_triangle_setup`, `_make_setup`,
-`_bin_triangles`). Each op is written in the JAX code's order, so the
-per-triangle coefficients round the same way on the CPU and the card.
+`_bin_triangles`) and the texel shader's oracle `barycentrics_at_pixels`.
+Each op is written in the JAX code's order, so the per-triangle
+coefficients round the same way on the CPU and the card.
 
 Determinism: per tile, candidates are the tile's overlapping triangle ids
 in ascending order, so the z-resolve (rasterize/tile_kernel.py) keeps the
@@ -135,6 +136,43 @@ def setup_inputs(vertices, faces, rotation, translation, focal_lengths,
         vertices, faces, f32(rotation), f32(translation),
         f32(focal_lengths), f32(principal_point), face_vertices,
     )
+
+
+def pixel_centres(height, width, y_offset, device):
+    """(py, px) f32 (H, W) pixel-centre coordinates: row + 0.5 + y_offset
+    and column + 0.5, as the JAX package's broadcasted iotas."""
+    py = (torch.arange(height, dtype=torch.float32, device=device) + 0.5
+          + float(y_offset))
+    px = torch.arange(width, dtype=torch.float32, device=device) + 0.5
+    return (py[:, None].expand(height, width),
+            px[None, :].expand(height, width))
+
+
+def barycentrics_at_pixels(vertices, faces, rotation, translation,
+                           focal_lengths, principal_point, tri_index,
+                           y_offset=0):
+    """Perspective-correct barycentrics (H, W, 3) of each pixel's winning
+    triangle; tri_index (H, W) int32 with -1 empty (garbage there). The
+    direct formulation, the texel shader's test oracle. Runs on
+    tri_index's device."""
+    device = tri_index.device
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    pix, z_cam = project_vertices(f32(vertices), f32(rotation),
+                                  f32(translation), f32(focal_lengths),
+                                  f32(principal_point))
+    height, width = tri_index.shape
+    f = torch.as_tensor(faces, device=device).long()[
+        tri_index.clamp(min=0).long()]  # (H, W, 3)
+    p = pix[f]  # (H, W, 3, 2)
+    z = z_cam[f]  # (H, W, 3)
+    yy, xx = pixel_centres(height, width, y_offset, device)
+    pt = torch.stack([xx, yy], dim=-1)
+    b2 = geometry.barycentric_2d(pt, p[..., 0, :], p[..., 1, :], p[..., 2, :])
+    b3, _ = geometry.perspective_correct(b2, torch.clamp(z, min=Z_NEAR))
+    return b3
 
 
 def _tile_range(lo, hi, size, n):

@@ -1,9 +1,12 @@
-"""Public render API: `triangles(mesh)`, pinhole cameras.
+"""Public render API: `triangles(mesh)` and `texels(mesh, cameras, tpp)`,
+pinhole cameras.
 
-Counterpart of `TrianglesRenderer`, `_OverflowPolicy`, `_DenseCapPolicy`,
-the dense probes and `triangles()` in `semantic_meshes/render.py` (reference:
+Counterpart of `TrianglesRenderer`, `TexelsRenderer`, `_OverflowPolicy`,
+`_DenseCapPolicy`, the dense probes, the texel sizing and shader, and
+`triangles()` / `texels()` in `semantic_meshes/render.py` (reference:
 python/semantic_meshes/src/Render.cu:12-25,
-include/semantic_meshes/render/TriangleRenderer.h:11-95).
+include/semantic_meshes/render/TriangleRenderer.h:11-95,
+TexturedTriangleRenderer.h:54-226).
 
 `renderer.render(camera)` returns `(primitive_indices, depth)` as tensors
 on the renderer's device shaped (width, height), the reference's layout.
@@ -12,12 +15,14 @@ background, so empty pixels read 0xFFFFFFFF. Depth is f32 with +inf for
 background. Inside the port, ids travel as int32 with -1 for background.
 
 Meshes of DENSE_THRESHOLD faces or more go to the dense rasterizer, whose
-budgets the renderer probes once per resolution (`_DenseCapPolicy`).
+budgets the renderer probes once per resolution (`_DenseCapPolicy`). Texel
+mode rasterizes whole triangles the same way and turns each pixel's
+triangle id into a texel id with `_texel_prim_image`.
 
-Not ported yet (see ROADMAP): texel mode, lens distortion (a camera with a
-nonzero lens raises), near-plane clipping (`clip_near=True` raises), and
-the face-count bucketing that the JAX package uses only to share jit
-compilations.
+Not ported yet (see ROADMAP): lens distortion (a camera with a nonzero
+lens raises), near-plane clipping (`clip_near=True` raises), and the
+face-count bucketing that the JAX package uses only to share jit
+compilations (`bucket=` is accepted and changes nothing).
 """
 
 from __future__ import annotations
@@ -27,8 +32,9 @@ import logging
 import numpy as np
 import torch
 
+from . import geometry
 from . import rasterize as rast
-from .data import Camera, Ply, resolve_device, stack_cameras
+from .data import Camera, Colmap, Ply, resolve_device, stack_cameras
 
 logger = logging.getLogger("semantic_meshes_torch")
 
@@ -322,14 +328,19 @@ class TrianglesRenderer:
         if new and dense_e_cap is not None:
             self.dense_cap_policy.invalidate(key)
 
+    def _shade(self, camera, tri):
+        """Primitive ids (int32, -1 for none) of a triangle-id image: the
+        triangle ids themselves (TexelsRenderer shades them into texels)."""
+        return tri
+
     def render(self, camera: Camera):
         """(ids (W, H) uint32, depth (W, H) f32) on the renderer's device."""
         check_pinhole([camera])
         height, width = _camera_hw(camera)
-        dense_e_cap = self._dense_e_cap(
-            height, width, camera.rotation, camera.translation,
-            camera.focal_lengths, camera.principal_point)
-        ids, depth, overflow = self._rasterize(camera, dense_e_cap)
+        dense_e_cap = self._dense_e_cap(height, width,
+                                        *_camera_arrays(camera))
+        tri, depth, overflow = self._rasterize(camera, dense_e_cap)
+        ids = self._shade(camera, tri)
         self._check_overflow(overflow, (height, width), dense_e_cap)
         return ids.t().contiguous().view(torch.uint32), depth.t().contiguous()
 
@@ -345,7 +356,8 @@ class TrianglesRenderer:
         out = [self._rasterize(c, dense_e_cap) for c in cams]
         self._check_overflow(torch.stack([o for _, _, o in out]).sum(), hw,
                              dense_e_cap)
-        ids = torch.stack([i for i, _, _ in out]).transpose(1, 2).contiguous()
+        ids = torch.stack([self._shade(c, tri) for c, (tri, _, _)
+                           in zip(cams, out)]).transpose(1, 2).contiguous()
         depth = torch.stack([d for _, d, _ in out]).transpose(1, 2)
         return ids.view(torch.uint32), depth.contiguous()
 
@@ -366,11 +378,168 @@ class TrianglesRenderer:
             self._dense_e_cap(height, width, *stack_cameras(group))
 
 
+def _texel_resolutions(vertices, faces, cameras, texels_per_pixel):
+    """Per-triangle texel grid resolution r = ceil(tpp * sqrt(max screen
+    area)) as (T,) int32 on the device of `vertices`.
+
+    The reference's host loop over (triangles x cameras)
+    (ref: TexturedTriangleRenderer.h:93-127): a camera counts a triangle's
+    screen area iff a vertex lies in front of it (z > 0) and all three
+    projected vertices fall inside the 0.5-resolution border box around
+    the image. A running max over the cameras keeps memory O(T) however
+    many cameras there are."""
+    device = vertices.device
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    rot, trans, fl, pp = (f32(a) for a in stack_cameras(cameras))
+    res = f32(np.asarray([c.resolution for c in cameras], np.float32))
+    flat = vertices[faces.long()].reshape(-1, 3)  # (3T, 3), gathered once
+    max_area = torch.zeros(faces.shape[0], dtype=torch.float32,
+                           device=device)
+    for k in range(len(cameras)):
+        cam = geometry.rigid_transform(rot[k], trans[k], flat)
+        lo = -0.5 * res[k]
+        hi = 1.5 * res[k]
+        p = geometry.pinhole_project(fl[k], pp[k], cam).reshape(-1, 3, 2)
+        in_front = (cam[:, 2].reshape(-1, 3) > 0).any(dim=-1)
+        inside = ((p >= lo) & (p < hi)).reshape(-1, 6).all(dim=-1)
+        area = geometry.triangle_screen_area(p)
+        area = torch.where(in_front & inside, area, torch.zeros_like(area))
+        max_area = torch.maximum(max_area, area)
+    return torch.ceil(float(texels_per_pixel) * torch.sqrt(max_area)).to(
+        torch.int32)
+
+
+class TexelsRenderer(TrianglesRenderer):
+    """Sub-triangle texel renderer (the paper's texel mode), on `device`
+    (default "cuda"): each triangle is cut into an r x r triangular grid of
+    r(r+1)/2 texel primitives, so fusion resolution does not depend on
+    triangle size.
+
+    cameras: a Colmap workspace or a list of Cameras, used once to size
+    each triangle's grid (`_texel_resolutions`, on the faces as given);
+    then each face is reordered so its most right-angled vertex maps to uv
+    (0, 0) (`geometry.reorder_faces_for_texels`; the mesh's own face array
+    is not touched). Rendering, budgets and overflow are
+    TrianglesRenderer's, with each triangle-id image shaded into texel ids;
+    pixels of no texel (background, or a triangle no sizing camera saw)
+    read 0xFFFFFFFF. backend as in TrianglesRenderer; clip_near=True
+    raises (not ported); `bucket` is accepted and changes nothing."""
+
+    def __init__(self, mesh: Ply, cameras, texels_per_pixel: float = 0.1,
+                 max_tris_per_tile: int = 256, backend: str | None = None,
+                 clip_near: bool = False, bucket: bool | None = None,
+                 device="cuda"):
+        super().__init__(mesh, max_tris_per_tile, backend, clip_near,
+                         device=device)
+        if isinstance(cameras, Colmap):
+            cameras = cameras.getCameras()
+        cameras = list(cameras)
+        if not cameras:
+            raise ValueError("texels renderer needs at least one camera")
+        self.resolutions = _texel_resolutions(self.vertices, self.faces,
+                                              cameras, texels_per_pixel)
+        self.faces = geometry.reorder_faces_for_texels(self.vertices,
+                                                       self.faces)
+        self.face_vertices = self.vertices[self.faces]
+        counts = geometry.texel_count(self.resolutions.cpu().long()).numpy()
+        first = np.zeros(len(counts) + 1, np.int64)
+        np.cumsum(counts, out=first[1:])
+        self._primitive_num = int(first[-1])
+        if self._primitive_num >= 2 ** 31:
+            raise ValueError(f"{self._primitive_num} texels overflow int32 "
+                             "ids; lower texels_per_pixel")
+        self.first_texel_index = torch.as_tensor(
+            first[:-1].astype(np.int32), device=self.device)
+        logger.info(
+            "Got %d triangles, %d texels and %d triangles without texels",
+            self._num_faces, self._primitive_num, int(np.sum(counts == 0)),
+        )
+
+    def getPrimitivesNum(self) -> int:
+        return self._primitive_num
+
+    def _shade(self, camera, tri):
+        prim = _texel_prim_image(
+            self.vertices, self.faces, *_camera_arrays(camera), tri,
+            self.resolutions, self.first_texel_index, self._primitive_num)
+        return torch.where(prim < self._primitive_num, prim,
+                           torch.full_like(prim, -1))
+
+
+def _camera_arrays(camera):
+    return (camera.rotation, camera.translation, camera.focal_lengths,
+            camera.principal_point)
+
+
+def _texel_prim_image(vertices, faces, rotation, translation, focal_lengths,
+                      principal_point, tri_index, resolutions,
+                      first_texel_index, num_primitives, y_offset=0):
+    """Texel primitive ids (H, W) int32 of a rasterized triangle-id image
+    tri_index (H, W) int32 (-1 empty); pixels of no texel (empty, or on a
+    triangle of resolution 0) get `num_primitives`.
+
+    TexturedTriangle::getTexelIndex (ref: TexturedTriangleRenderer.h:31-41)
+    as a pass over the winning fragments. A pixel's perspective-correct uv
+    is a ratio of affine forms, u = A1(x, y) / S(x, y), v = A2 / S, with
+    A_i = w_i * inv_z_i and S = A0 + A1 + A2, so the shader reads one
+    table row per pixel: the 9 f32 coefficients of A1, A2 and S as int32
+    bits, the resolution and the first texel index, (T, 11) int32. u and v
+    are true divisions. Runs on tri_index's device; the same op order as
+    the JAX package's `_texel_prim_image`."""
+    device = tri_index.device
+
+    def f32(x):
+        return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+    faces = torch.as_tensor(faces, device=device).long()
+    pix, z_cam = rast.tiles.project_vertices(
+        f32(vertices), f32(rotation), f32(translation), f32(focal_lengths),
+        f32(principal_point))
+    setup = rast.tiles._triangle_setup(pix, z_cam, faces)
+    inv_z = torch.reciprocal(torch.clamp(z_cam[faces], min=rast.Z_NEAR))
+    aff = [[setup[k][:, i] * inv_z[:, i] for k in ("a", "b", "c")]
+           for i in range(3)]  # A_i = (a_i, b_i, c_i) * inv_z_i
+    s = [aff[0][k] + aff[1][k] + aff[2][k] for k in range(3)]
+    table = torch.stack(
+        [c.view(torch.int32) for c in aff[1] + aff[2] + s]
+        + [torch.as_tensor(resolutions, dtype=torch.int32, device=device),
+           torch.as_tensor(first_texel_index, dtype=torch.int32,
+                           device=device)], dim=-1)  # (T, 11)
+
+    height, width = tri_index.shape
+    row = table[tri_index.clamp(min=0).long()]  # the one per-pixel gather
+    coef = row.view(torch.float32)  # lanes 0-8 are the f32 coefficients
+    py, px = rast.tiles.pixel_centres(height, width, y_offset, device)
+
+    def form(i):
+        return coef[..., i] * px + coef[..., i + 1] * py + coef[..., i + 2]
+
+    s_val = form(6)
+    u = torch.div(form(0), s_val)
+    v = torch.div(form(3), s_val)
+    res = row[..., 9]
+    rel = geometry.texel_index_uv(u, v, res.clamp(min=1))
+    valid = (tri_index >= 0) & (res >= 1)
+    return torch.where(valid, row[..., 10] + rel,
+                       torch.full_like(rel, num_primitives))
+
+
 def triangles(mesh: Ply, **kwargs) -> TrianglesRenderer:
     """Factory matching `semantic_meshes.render.triangles(mesh)`
     (ref: python/semantic_meshes/src/Render.cu:24)."""
     return TrianglesRenderer(mesh, **kwargs)
 
 
-# Reference-compatible class alias (ref: Render.cu:16)
+def texels(mesh: Ply, cameras, texels_per_pixel: float = 0.1,
+           **kwargs) -> TexelsRenderer:
+    """Factory matching `semantic_meshes.render.texels(mesh, colmap |
+    [cameras][, texels_per_pixel])` (ref: Render.cu:20-23)."""
+    return TexelsRenderer(mesh, cameras, texels_per_pixel, **kwargs)
+
+
+# Reference-compatible class aliases (ref: Render.cu:16-17)
 PlyRendererTriangles = TrianglesRenderer
+PlyRendererTexels = TexelsRenderer

@@ -64,6 +64,8 @@ def test_default_device_is_the_card_without_fallback(tmp_path):
     mesh = data.Ply(tmp_path / "m.ply")
     if torch.cuda.is_available():
         assert render.triangles(mesh).device.type == "cuda"
+        cams = testing.make_ring_cameras(1, 128, 32)
+        assert render.texels(mesh, cams, 1.0).device.type == "cuda"
         assert fusion.MeshAggregator(12, 3).device.type == "cuda"
         ann = np.zeros((12, 3), np.float32)
         assert fusion.ModelRenderer(ann).annotations.is_cuda
@@ -80,6 +82,14 @@ def test_default_device_is_the_card_without_fallback(tmp_path):
             vertices, faces, cam.rotation, cam.translation,
             cam.focal_lengths, cam.principal_point, height=32, width=128,
         )
+    with pytest.raises(RuntimeError, match="is_available"):
+        render.texels(mesh, [cam], 1.0)
+    arrays = data.stack_cameras([cam])
+    with pytest.raises(RuntimeError, match="is_available"):
+        semantic_meshes_torch.distributed.fuse_views_texels(
+            vertices, faces, np.ones(12, np.int32), np.arange(12), *arrays,
+            np.zeros((1, 32, 128, 3), np.float32), 0.5, num_primitives=12,
+            aggregator="sum", height=32, width=128)
 
 
 def test_kernel_sources_and_build_paths():
