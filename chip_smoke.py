@@ -47,6 +47,24 @@ card), in phases; each phase prints a line and raises on failure:
      triangle ids; at `texels01` each id == first_texel_index[face]; a
      texel renderer at `default` (2.0 texels per pixel) through
      raster_tile, one launch a view;
+   - lens distortion (bench.py has no distorted preset; the lenses are
+     RADIAL_SCANNET, FISHEYE and RADIAL_LARGE below, nothing cut):
+     `scannet` + SIMPLE_RADIAL on all 8 views (kernel B): prepare ->
+     render -> render_many -> MeshAggregator sum/summax/mul -> get -> PLY,
+     plan_fuse(distortions=) with lens_shared + fuse_views_planned twice
+     == per-view, bit-identical, == the same batch with
+     shared_lens=False; `large` with mixed lenses (fisheye on views 0-3
+     on the 9-wide wire, zero lenses on 4-5, SIMPLE_RADIAL on 6-7; kernel
+     A): render_many == render on one view of each nonzero lens, the
+     zero-lens views == their pinhole renders bit for bit,
+     fuse_views(distortions=) == per-view; the `default` texel renderer
+     under `large`'s lenses through raster_tile and forced through
+     raster_dense (fuse_views_texels(backend="dense")):
+     fuse_views_texels == per-view, every id < P; overflow 0 and each
+     kernel once per view rasterized everywhere; the undistortion grid
+     on the card against the CPU at full size (one view per lens: the
+     classic wire bit for bit, the extended wire's differences, and its
+     ids after the resample on at most 1e-4 of the pixels);
 5. times with CUDA events (medians after warm-up): each kernel's time
    per view both as `ms`, from replays of a CUDA graph of its launches
    (the device's own time), and as `launched_ms`, with Python launching
@@ -61,9 +79,14 @@ card), in phases; each phase prints a line and raises on failure:
    and one traced batch per preset (idle share, top device kernels); at
    the texel presets the pieces of a view (setup + dense binning,
    raster_dense, the texel shader, fusion), one fuse_views_texels batch
-   as `rasterize_fuse_throughput` and one traced batch. The kernel line's
-   `launches` counts `large` and `scannet`; `launches_by_path` every
-   path's run.
+   as `rasterize_fuse_throughput` and one traced batch; the lens pieces
+   (the classic grid once per batch, the extended grid per view,
+   _resample_wh launched and in graph replays with its byte bound) and
+   one batch (timed in phase 4 where the lenses are extended) and one
+   traced batch of each distorted variant, and
+   `scannet` + SIMPLE_RADIAL against `scannet` in turns. The kernel
+   line's `launches` counts `large` and `scannet`; `launches_by_path`
+   every path's run.
 
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
@@ -109,6 +132,16 @@ TPP = {"texels": 2.0, "texels01": 0.1, "default": 2.0}
 TEXEL_P = {"texels": 809984, "texels01": 99372}
 IEW = 0.5
 SEED = 0
+# lens wires of the distorted variants (bench.py has no distorted preset):
+# SIMPLE_RADIAL (COLMAP's default model) on all of `scannet`'s views, one
+# physical camera; at f = 0.9 * 968 its corner radius is 0.93 and its fold
+# 1.83, so the lens inverts over the whole frame. `large` mixes the
+# 9-wide OPENCV_FISHEYE wire of tests/test_lens_models.py, zero lenses and
+# SIMPLE_RADIAL k1 = 0.1 (LARGE_LENSES).
+RADIAL_SCANNET = (-0.1, 0.0, 0.0, 0.0)
+RADIAL_LARGE = (0.1, 0.0, 0.0, 0.0)
+FISHEYE = (0.03, -0.011, 0.002, -0.0005, 0.0, 0.0, 0.0, 0.0, 1.0)
+LARGE_LENSES = [FISHEYE] * 4 + [None] * 2 + [RADIAL_LARGE] * 2
 # H100 SXM peaks (NVIDIA data sheet): non-tensor fp32 and HBM3 bandwidth.
 # The 67 TFLOP/s counts an FMA as two operations; the kernels round every
 # multiply and add on its own (-fmad=false), one per lane and clock, so
@@ -123,8 +156,12 @@ FLOPS_PER_TEST = 12
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
+_START = time.monotonic()
+
+
 def phase(msg):
-    print(msg, flush=True)
+    """Print one phase line, with the seconds since the script started."""
+    print(f"{msg} [{time.monotonic() - _START:.1f} s]", flush=True)
 
 
 def card_line():
@@ -227,20 +264,22 @@ def load_against(path, index):
             f"{name}.rasterize.dense_kernel").resolve_dense_cuda)
 
 
+def timed(fn):
+    """(fn()'s result, its device time in ms from CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def cuda_time_ms(fn, reps, warmup=2):
     """Median over `reps` of fn()'s device time in ms (CUDA events)."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(timed(fn)[1] for _ in range(reps))
 
 
 _capture_stream = []
@@ -435,18 +474,19 @@ def fuse_and_save(name, mesh, rendered, probs, classes, workdir, device,
     return fused
 
 
-def planned_twice(name, plan, vertices, cams, probs, classes, device):
-    """Two fuse_views_planned batches; both overflow 0 and bit-identical."""
+def planned_twice(name, plan, vertices, cams, probs, classes, device, **kw):
+    """Two fuse_views_planned batches (keywords `kw` passed on); both
+    overflow 0 and bit-identical."""
     import semantic_meshes_torch as smt
 
-    _, n_views, width, height, _ = SCENES[name]
+    width, height = cams[0].resolution
     rot, trans, fl, pp = smt.data.stack_cameras(cams)
     runs = []
     for _ in range(2):
         acc, ov = smt.distributed.fuse_views_planned(
             plan, vertices, rot, trans, fl, pp, probs, IEW,
             num_primitives=len(plan.faces), aggregator="sum", height=height,
-            width=width, device=device)
+            width=width, device=device, **kw)
         if int(ov) != 0:
             raise AssertionError(f"{name}: fuse_views_planned overflow "
                                  f"{int(ov)}")
@@ -713,7 +753,10 @@ def texel_main_path(name, device, workdir):
               renderer.first_texel_index)
     cpu_tables = [t.cpu() for t in tables]
     for k, cam in enumerate(cams):
-        tri = renderer._rasterize(cam, cap)[0]
+        tri = smt.rasterize.rasterize(
+            renderer.vertices, renderer.faces, *cam_args(cam),
+            face_vertices=renderer.face_vertices, height=height, width=width,
+            dense_e_cap=cap, device=device)[0]
         # the shader on the card against the same shader on the CPU, from
         # the card's triangle ids and the renderer's tables
         card = smt.render._texel_prim_image(*tables[:2], *cam_args(cam), tri,
@@ -771,6 +814,364 @@ def texel_tile_check(device):
           f"raster_tile, launches {launches}, P {P}, ids within P, "
           "overflow 0")
     return launches
+
+
+def with_lenses(cams, lenses):
+    """The cameras `cams` with lens wire lenses[k] (None: none) on view k."""
+    import semantic_meshes_torch as smt
+
+    return [smt.data.Camera(c.rotation, c.translation, c.resolution,
+                            c.focal_lengths, c.principal_point,
+                            distortion=lens)
+            for c, lens in zip(cams, lenses)]
+
+
+def expect_launches(name, launches, kernel, expect):
+    other = "raster_tile" if kernel == "raster_dense" else "raster_dense"
+    if launches[kernel] != expect or launches[other] != 0:
+        raise AssertionError(f"{name}: launches {launches}, expected "
+                             f"{expect} of {kernel} and none of {other}")
+
+
+def per_view_sum(P, classes, rendered, probs, device):
+    """The per-view path's sum state: MeshAggregator.add of each (W, H)
+    id image."""
+    import semantic_meshes_torch as smt
+
+    agg = smt.fusion.MeshAggregator(P, classes, "sum", IEW, device=device)
+    for k, ids in enumerate(rendered):
+        agg.add(ids, probs[k].transpose(0, 1))
+    return agg.state
+
+
+def same_state(name, batched, per_view):
+    """batched == per-view at rtol 1e-6; returns whether bit-equal."""
+    if not torch.allclose(batched, per_view, rtol=1e-6, atol=0.0):
+        err = float((batched - per_view).abs().max())
+        raise AssertionError(f"{name}: batched != per-view (max |err| "
+                             f"{err})")
+    return torch.equal(batched, per_view)
+
+
+def distorted_scannet(device, workdir):
+    """Phase 4 at `scannet` + SIMPLE_RADIAL (one physical camera on all 8
+    views; kernel B by auto dispatch): prepare -> render -> render_many ->
+    MeshAggregator sum/summax/mul -> get -> PLY; plan_fuse(distortions=)
+    (lens_shared) + fuse_views_planned twice, bit-identical, == per-view;
+    the hoisted grid == shared_lens=False bit for bit; overflow 0;
+    raster_dense once per view rendered."""
+    import semantic_meshes_torch as smt
+
+    sub, n_views, width, height, classes = SCENES["scannet"]
+    vertices, faces = smt.testing.make_cube(subdivisions=sub)
+    path = os.path.join(workdir, "scannet_radial.ply")
+    smt.io.ply.write_mesh(path, vertices, faces)
+    mesh = smt.data.Ply(path)
+    cams = with_lenses(smt.testing.make_ring_cameras(
+        num_views=n_views, width=width, height=height),
+        [RADIAL_SCANNET] * n_views)
+    probs = device_probs(n_views, height, width, classes, device)
+    rot, trans, fl, pp = smt.data.stack_cameras(cams)
+    dists = smt.data.stack_distortions(cams)
+
+    reset_launches()
+    renderer = smt.render.triangles(mesh, device=device)
+    renderer.prepare(cams)
+    cap = renderer.dense_cap_policy._cap[(height, width)]
+    rendered = [renderer.render(cam)[0] for cam in cams]
+    many, _ = renderer.render_many(cams)
+    if not torch.equal(many, torch.stack(rendered)):
+        raise AssertionError("scannet radial: render_many != render")
+    if renderer.overflow_total() != 0:
+        raise AssertionError("scannet radial: render overflow")
+    fused_sum = fuse_and_save("scannet_radial", mesh, rendered, probs,
+                              classes, workdir, device)
+    plan = smt.distributed.plan_fuse(vertices, faces, rot, trans, fl, pp,
+                                     height=height, width=width,
+                                     distortions=dists, device=device)
+    if not plan.lens_shared:
+        raise AssertionError("scannet radial: plan.lens_shared is False")
+    acc = planned_twice("scannet radial", plan, vertices, cams, probs,
+                        classes, device, distortions=dists)
+    unhoisted, ov = smt.distributed.fuse_views_planned(
+        plan, vertices, rot, trans, fl, pp, probs, IEW,
+        num_primitives=len(faces), aggregator="sum", height=height,
+        width=width, distortions=dists, shared_lens=False, device=device)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if int(ov) != 0 or not torch.equal(unhoisted, acc):
+        raise AssertionError("scannet radial: hoisted grid != per-view "
+                             f"grids (overflow {int(ov)})")
+    caps = [cap] * (2 * n_views) + [plan.dense_e_cap] * (3 * n_views)
+    expect_launches("scannet radial", launches, "raster_dense",
+                    sum(1 for c in caps if c[0] > 0))
+    bit = same_state("scannet radial", acc, fused_sum)
+    phase(
+        f"phase 4: scannet + SIMPLE_RADIAL k1 {RADIAL_SCANNET[0]} ok: "
+        f"{n_views} views {width}x{height}, {len(faces)} triangles, dense "
+        f"budget {cap} (render), plan {plan.dense_e_cap} lens_shared "
+        f"{plan.lens_shared}; prepare + render + render_many, sum/summax/mul "
+        f"fused, PLY saved and reloaded, overflow 0, launches {launches}, "
+        f"planned == per-view (bit-equal: {bit}), repeated fusion "
+        "bit-identical, hoisted grid == shared_lens=False bit for bit"
+    )
+    def batch():
+        return smt.distributed.fuse_views_planned(
+            plan, vertices, rot, trans, fl, pp, probs, IEW,
+            num_primitives=len(faces), aggregator="sum", height=height,
+            width=width, distortions=dists, device=device)
+
+    # the same cameras and probabilities without the lens, for phase 5's
+    # comparison in turns
+    pinhole_plan = smt.distributed.plan_fuse(vertices, faces, rot, trans, fl,
+                                             pp, height=height, width=width,
+                                             device=device)
+
+    def pinhole_batch():
+        return smt.distributed.fuse_views_planned(
+            pinhole_plan, vertices, rot, trans, fl, pp, probs, IEW,
+            num_primitives=len(faces), aggregator="sum", height=height,
+            width=width, device=device)
+
+    return dict(faces=faces, cams=cams, plan=plan, batch=batch,
+                pinhole_batch=pinhole_batch, entry="fuse_views_planned",
+                launches=launches)
+
+
+def distorted_large(device):
+    """Phase 4 at `large` with mixed lenses (LARGE_LENSES; the tile
+    rasterizer): render_many == render on one view of each nonzero lens
+    (0: fisheye, 6: SIMPLE_RADIAL), the zero-lens views 4-5 of the
+    distorted batch == their pinhole renders bit for bit, fuse_views
+    (distortions=, no hoist) == the per-view path over render_many's
+    views, overflow 0, raster_tile once per view rasterized. Every view
+    of the batch, padded to the 9-wide wire, runs the extended Newton
+    (~0.5-0.8 s of launches a view), so the fused batch is timed here
+    once and phase 5 reuses that time."""
+    import semantic_meshes_torch as smt
+
+    sub, n_views, width, height, classes = SCENES["large"]
+    vertices, faces, pinholes = scene("large")
+    cams = with_lenses(pinholes, LARGE_LENSES)
+    probs = device_probs(n_views, height, width, classes, device)
+    rot, trans, fl, pp = smt.data.stack_cameras(cams)
+    dists = smt.data.stack_distortions(cams)
+    if dists.shape != (n_views, 9) or smt.distributed.lens_shared(
+            fl, pp, dists):
+        raise AssertionError(f"large lenses: wire {dists.shape}")
+
+    def batch():
+        return smt.distributed.fuse_views(
+            vertices, faces, rot, trans, fl, pp, probs, IEW, None, dists,
+            num_primitives=len(faces), aggregator="sum", height=height,
+            width=width, device=device)
+
+    reset_launches()
+    renderer = smt.render.triangles(
+        SimpleNamespace(vertices=vertices, faces=faces), device=device)
+    single = {k: renderer.render(cams[k])[0] for k in (0, 6)}
+    single.update({k: renderer.render(pinholes[k])[0] for k in (4, 5)})
+    many, _ = renderer.render_many(cams)
+    (acc, ov), batch_ms = timed(batch)
+    launches = read_launches()
+    for k, ids in single.items():
+        if not torch.equal(many[k], ids):
+            raise AssertionError(
+                f"large lenses: view {k} of render_many != its "
+                + ("pinhole render" if k in (4, 5) else "render"))
+    if renderer.overflow_total() != 0 or int(ov) != 0:
+        raise AssertionError(f"large lenses: overflow {int(ov)}")
+    # the four single renders, render_many, the batch
+    expect_launches("large lenses", launches, "raster_tile",
+                    len(single) + 2 * n_views)
+    bit = same_state("large lenses", acc,
+                     per_view_sum(len(faces), classes, many, probs, device))
+    phase(
+        f"phase 4: large + lenses ok: {n_views} views {width}x{height} "
+        f"(fisheye {FISHEYE[:4]} on views 0-3, zero 4-5, SIMPLE_RADIAL k1 "
+        f"{RADIAL_LARGE[0]} 6-7; wire {dists.shape}, no hoist), "
+        f"{len(faces)} triangles; render_many == render on views 0 and 6, "
+        f"zero-lens views 4-5 == pinhole bit for bit, fuse_views == "
+        f"per-view (bit-equal: {bit}), overflow 0, launches {launches}"
+    )
+    return dict(faces=faces, cams=cams, batch=batch, batch_ms=batch_ms,
+                entry="fuse_views", renderer=renderer, launches=launches)
+
+
+def distorted_texels(device):
+    """Phase 4: the `default` texel renderer (2.0 texels per pixel) under
+    `large`'s lens pattern: through raster_tile, and forced through
+    raster_dense (backend="dense" on fuse_views_texels and the renderer):
+    fuse_views_texels(distortions=) == the per-view path, every texel id
+    < P, overflow 0, each kernel once per view rasterized and the other
+    not at all. Each fused batch is timed here once (phase 5 reuses the
+    time), as at `large` + lenses."""
+    import semantic_meshes_torch as smt
+
+    sub, n_views, width, height, classes = SCENES["default"]
+    vertices, faces, pinholes = scene("default")
+    mesh = SimpleNamespace(vertices=vertices, faces=faces)
+    cams = with_lenses(pinholes, LARGE_LENSES)
+    probs = device_probs(n_views, height, width, classes, device)
+    rot, trans, fl, pp = smt.data.stack_cameras(cams)
+    dists = smt.data.stack_distortions(cams)
+    out = {}
+    for backend in ("tile", "dense"):
+        reset_launches()
+        renderer = smt.render.texels(mesh, pinholes, TPP["default"],
+                                     backend=backend, device=device)
+        P = renderer.getPrimitivesNum()
+        renderer.prepare(cams)
+        rendered = [renderer.render(cam)[0] for cam in cams]
+        plan = smt.distributed.plan_fuse(
+            renderer.vertices, renderer.faces, rot, trans, fl, pp,
+            height=height, width=width, backend=backend, allow_split=False,
+            distortions=dists, device=device)
+
+        def batch(renderer=renderer, plan=plan, backend=backend, P=P):
+            return smt.distributed.fuse_views_texels(
+                renderer.vertices, renderer.faces, renderer.resolutions,
+                renderer.first_texel_index, rot, trans, fl, pp, probs, IEW,
+                distortions=dists, num_primitives=P, aggregator="sum",
+                height=height, width=width, backend=backend,
+                dense_e_cap=plan.dense_e_cap, device=device)
+
+        (acc, ov), batch_ms = timed(batch)
+        launches = read_launches()
+        ids = torch.stack(rendered).view(torch.int32)
+        if int(ov) != 0 or renderer.overflow_total() != 0:
+            raise AssertionError(f"default texels lenses {backend}: overflow")
+        if int(ids.max()) >= P or not (ids >= 0).any():
+            raise AssertionError(f"default texels lenses {backend}: ids up "
+                                 f"to {int(ids.max())} of {P}")
+        kernel = "raster_tile" if backend == "tile" else "raster_dense"
+        expect_launches(f"default texels lenses {backend}", launches, kernel,
+                        2 * n_views)
+        bit = same_state(f"default texels lenses {backend}", acc,
+                         per_view_sum(P, classes, rendered, probs, device))
+        phase(
+            f"phase 4: default texels + lenses through {kernel} ok: "
+            f"{n_views} views {width}x{height}, tpp {TPP['default']}, P {P}, "
+            f"lenses as at large, plan {plan.dense_e_cap}; "
+            f"fuse_views_texels(distortions=, backend={backend!r}) == "
+            f"per-view (bit-equal: {bit}), every texel id < P, overflow 0, "
+            f"launches {launches}"
+        )
+        out[backend] = dict(batch=batch, batch_ms=batch_ms,
+                            entry="fuse_views_texels", launches=launches,
+                            primitives=P, faces=faces, plan=plan)
+    return out
+
+
+def grid_card_vs_cpu(device, card):
+    """Phase 4: _undistort_grid on the card against the CPU, one view per
+    lens, from the same inputs: the classic wire bit for bit (a gate);
+    the extended wire's max |dn| and |ds|, and the card's own pinhole
+    image resampled with the CPU grid against the card grid (ids may
+    differ on at most 1e-4 of the pixels). The extended view is the
+    fisheye grid of `default` texels + lenses at its full 1024x768:
+    `large`'s 2048x1536 has the same lens and field of view (focal 0.9 x
+    height, centred) and runs the same elementwise ops on 4x the pixels,
+    where the CPU's Newton would take 4x the time printed here."""
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch import rasterize as rast, render
+
+    views = [("scannet", SCENES["scannet"], RADIAL_SCANNET),
+             ("large", SCENES["large"], RADIAL_LARGE),
+             ("default", SCENES["default"], FISHEYE)]
+    for label, (sub, n, width, height, _), lens in views:
+        vertices, faces = smt.testing.make_cube(subdivisions=sub)
+        cam = smt.testing.make_ring_cameras(num_views=n, width=width,
+                                            height=height)[0]
+        out = []
+        for d in (device, torch.device("cpu")):
+            fl, pp, dist = (torch.as_tensor(np.asarray(a, np.float32),
+                                            device=d)
+                            for a in (cam.focal_lengths,
+                                      cam.principal_point, lens))
+            t = time.monotonic()
+            out.append(render._undistort_grid(fl, pp, dist, height=height,
+                                              width=width))
+        cpu_s = time.monotonic() - t
+        (n_card, s_card), (n_cpu, s_cpu) = out
+        bit = torch.equal(n_card.cpu(), n_cpu) and torch.equal(
+            s_card.cpu(), s_cpu)
+        fl_s = torch.as_tensor(cam.focal_lengths, device=device) * s_card
+        pp = torch.as_tensor(cam.principal_point, device=device)
+        tri, depth, _ = rast.rasterize(
+            torch.as_tensor(vertices, device=device),
+            torch.as_tensor(faces.astype(np.int64), device=device),
+            cam.rotation, cam.translation, fl_s, pp, height=height,
+            width=width, backend="dense" if len(faces) >= 16384 else "tile",
+            device=device)
+        ids_card, _ = render._resample_wh(tri.t(), depth.t(), n_card, fl_s,
+                                          pp)
+        ids_cpu, _ = render._resample_wh(tri.t(), depth.t(),
+                                         n_cpu.to(device), fl_s, pp)
+        differ = int((ids_card != ids_cpu).sum())
+        dn = float((n_card.cpu() - n_cpu).abs().max())
+        ds = abs(float(s_card) - float(s_cpu))
+        classic = len(lens) == 4
+        if (classic and not bit) or differ > 1e-4 * width * height:
+            raise AssertionError(
+                f"{label}: card grid != CPU grid (bit-equal {bit}, max |dn| "
+                f"{dn}, |ds| {ds}, {differ} ids differ)")
+        phase(f"phase 4 [{card}]: grid card vs CPU at {label} {width}x"
+              f"{height}, lens {list(lens)}: bit-equal {bit}, max |dn| {dn}, "
+              f"|ds| {ds} (s {float(s_card)}), ids differing after the "
+              f"resample {differ} of {width * height}; the CPU grid took "
+              f"{cpu_s:.3f} s")
+
+
+def lens_times(large_ctx, scannet_ctx, device, card):
+    """Phase 5 of the distorted paths, per view: the grid (classic at
+    `scannet`, hoisted: once per batch; extended at `large`, per view),
+    launched from Python; _resample_wh at `large` launched and in graph
+    replays, with the bound of its bytes."""
+    from semantic_meshes_torch import rasterize as rast, render
+
+    def grid_args(cam, lens):
+        return [torch.as_tensor(np.asarray(a, np.float32), device=device)
+                for a in (cam.focal_lengths, cam.principal_point, lens)]
+
+    cam = scannet_ctx["cams"][0]
+    width, height = cam.resolution
+    args = grid_args(cam, cam.distortion)
+    classic_ms = cuda_time_ms(lambda: render._undistort_grid(
+        *args, height=height, width=width), reps=5)
+    cam = large_ctx["cams"][0]
+    lw, lh = cam.resolution
+    args = grid_args(cam, cam.distortion)
+    # one run: phase 4 has run this grid's launches many times already
+    (grid, s), ext_ms = timed(lambda: render._undistort_grid(
+        *args, height=lh, width=lw))
+    fl_s = args[0] * s
+    renderer = large_ctx["renderer"]
+    tri, depth, _ = rast.rasterize(
+        renderer.vertices, renderer.faces, cam.rotation, cam.translation,
+        fl_s, args[1], face_vertices=renderer.face_vertices, height=lh,
+        width=lw, device=device)
+    ids_wh, depth_wh = tri.t(), depth.t()
+
+    def resample():
+        return render._resample_wh(ids_wh, depth_wh, grid, fl_s, args[1])
+
+    resample_ms = cuda_time_ms(resample, reps=20)
+    resample_graph_ms = graph_time_ms(resample, reps=20)
+    # each input read once (grid 8 B, id + depth 8 B a pixel), each output
+    # written once (id + depth 8 B)
+    nbytes = lw * lh * 24
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    n_views = len(scannet_ctx["cams"])
+    phase(
+        f"phase 5 [{card}]: lens pieces, launched from Python: the classic "
+        f"grid (SIMPLE_RADIAL) at scannet {width}x{height} {classic_ms:.6f} "
+        f"ms once per batch ({classic_ms / n_views:.6f} ms per view of "
+        f"{n_views}, hoisted); the extended grid (fisheye) at large "
+        f"{lw}x{lh} {ext_ms:.6f} ms per view; _resample_wh at large "
+        f"{resample_ms:.6f} ms launched, {resample_graph_ms:.6f} ms in graph "
+        f"replays, its bytes bound {bound_ms:.6f} ms for {nbytes} bytes"
+    )
 
 
 def bound(ops, nbytes, ops_per_s=PEAK_FP32_OPS):
@@ -1132,13 +1533,14 @@ def device_busy(label, entry, fn, batch_ms, card):
     """One traced batch: the device's busy time (sum of the kernels' own
     device times, from torch.profiler), its share of the untraced batch
     time, and the kernels that take the most. Diagnostic only: a profiler
-    that sees no device time reports "not measured"."""
+    that sees no device time reports "not measured". The trace records
+    device activity alone: host ops would add an event to each of a
+    distorted batch's ~10^5 launches, and the busy time reads none."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     try:
-        prof = profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA])
+        prof = profile(activities=[ProfilerActivity.CUDA])
         prof.start()
     except RuntimeError as e:
         prof, why = None, e
@@ -1151,37 +1553,56 @@ def device_busy(label, entry, fn, batch_ms, card):
         return
     try:
         prof.stop()
-        events = [e for e in prof.key_averages()
-                  if getattr(e, "device_type", None) is not None
-                  and "CUDA" in str(e.device_type)]
-    except RuntimeError as e:
+        kernels = device_times(prof)
+    except (RuntimeError, AttributeError) as e:
         phase(f"phase 5 [{card}]: {label} device busy share: not measured "
               f"({e})")
         return
-    if not events:
+    if not kernels:
         phase(f"phase 5 [{card}]: {label} device busy share: not measured "
               "(the profiler saw no device time)")
         return
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    busy_ms = sum(ms for ms, _ in kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     phase(
         f"phase 5 [{card}]: {label}, one traced {entry} batch: "
         f"device busy {busy_ms:.6f} ms of the untraced {batch_ms:.6f} ms "
         f"(idle share {1 - busy_ms / batch_ms:.6f}); top device time: "
-        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.6f} ms "
-                    f"x{e.count}" for e in top)
+        + "; ".join(f"{name[:60]} {ms:.6f} ms x{n}"
+                    for name, (ms, n) in top)
     )
 
 
-def batch_throughput(name, ctx, device, card):
-    """rasterize_fuse_throughput of one batch (fuse_views_planned, or a
-    texel preset's fuse_views_texels), and one traced batch."""
+def device_times(prof):
+    """{name: [device ms, count]} of the kernels and copies of a stopped
+    trace, summed from its raw events (key_averages() would first build
+    an event per host op, about a minute for a distorted batch's ~10^5
+    launches)."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" in str(e.device_type()):
+            entry = out.setdefault(e.name(), [0.0, 0])
+            entry[0] += e.duration_ns() / 1e6
+            entry[1] += 1
+    return out
+
+
+def batch_throughput(name, ctx, device, card, label=None):
+    """rasterize_fuse_throughput of one batch at preset `name`
+    (fuse_views_planned, or ctx's own "batch" and "entry": a texel
+    preset's fuse_views_texels, a distorted variant's fusion), and one
+    traced batch. label: the variant's name (default `name`). The batch's
+    time is the median of 5 after 2 warm-ups, or ctx's "batch_ms" where
+    phase 4 timed a batch whose extended lenses make every run cost
+    seconds."""
     import semantic_meshes_torch as smt
 
     _, n_views, width, height, classes = SCENES[name]
+    label = label or name
     T = len(ctx["faces"])
     P = ctx.get("primitives", T)
-    entry = "fuse_views_texels" if "batch" in ctx else "fuse_views_planned"
+    entry = ctx.get("entry", "fuse_views_texels" if "batch" in ctx
+                    else "fuse_views_planned")
 
     def planned_batch():
         return smt.distributed.fuse_views_planned(
@@ -1190,20 +1611,46 @@ def batch_throughput(name, ctx, device, card):
             aggregator="sum", height=height, width=width, device=device)
 
     fused_batch = ctx.get("batch", planned_batch)
-    batch_ms = cuda_time_ms(fused_batch, reps=5)
+    batch_ms = ctx.get("batch_ms") or cuda_time_ms(fused_batch, reps=5)
     mpix_s = n_views * width * height / 1e6 / (batch_ms / 1e3)
-    phase(f"phase 5 [{card}]: {name}, {entry} batch {batch_ms:.6f} ms for "
+    phase(f"phase 5 [{card}]: {label}, {entry} batch {batch_ms:.6f} ms for "
           f"{n_views} views")
-    device_busy(name, entry, fused_batch, batch_ms, card)
-    phase(json.dumps({
+    device_busy(label, entry, fused_batch, batch_ms, card)
+    print(json.dumps({
         "metric": "rasterize_fuse_throughput", "value": mpix_s,
         "unit": "MPix/s", "card": card,
-        "detail": {"preset": name, "views": n_views,
+        "detail": {"preset": name, "variant": label, "views": n_views,
                    "resolution": [width, height], "triangles": T,
                    "primitives": P, "classes": classes,
                    "batch_ms": batch_ms, "entry": entry,
-                   "dense_e_cap": ctx["plan"].dense_e_cap},
-    }))
+                   "dense_e_cap": getattr(ctx.get("plan"), "dense_e_cap",
+                                          None)},
+    }), flush=True)
+
+
+def batches_in_turns(label_a, fn_a, label_b, fn_b, card):
+    """Device-event times of two batches on the same scene in turns (a, b,
+    b, a in each round, after one warm-up each), so the host's load
+    reaches both alike: each one's median and spread, the ratio of the
+    medians and the share of rounds b won."""
+    rounds = 5
+    fn_a(), fn_b()
+    times = {label_a: [], label_b: []}
+    for _ in range(rounds):
+        for label, fn in ((label_a, fn_a), (label_b, fn_b), (label_b, fn_b),
+                          (label_a, fn_a)):
+            times[label].append(cuda_time_ms(fn, reps=1, warmup=0))
+    a, b = times[label_a], times[label_b]
+    wins = sum(b[2 * k] + b[2 * k + 1] < a[2 * k] + a[2 * k + 1]
+               for k in range(rounds))
+    med_a, med_b = statistics.median(a), statistics.median(b)
+    phase(
+        f"phase 5 [{card}]: in turns ({rounds} rounds of a b b a), batch ms: "
+        f"a = {label_a} median {med_a:.6f} (min {min(a):.6f}, max "
+        f"{max(a):.6f}), b = {label_b} median {med_b:.6f} (min {min(b):.6f}, "
+        f"max {max(b):.6f}); throughput b / a {med_a / med_b:.6f}; b faster "
+        f"in {wins} of {rounds} rounds"
+    )
 
 
 def large_times(ctx, device, card):
@@ -1343,8 +1790,12 @@ def main():
         texel_setup_check(device)
         texels = {name: texel_main_path(name, device, workdir)
                   for name in ("texels", "texels01")}
+        scannet_lens = distorted_scannet(device, workdir)
     default_texels = texel_tile_check(device)
     dense_ctx = dense_preset(device)
+    large_lens = distorted_large(device)
+    texel_lens = distorted_texels(device)
+    grid_card_vs_cpu(device, card)
 
     tile_times("default", device, card, against)
     tile_row = tile_times("large", device, card, against)
@@ -1364,6 +1815,14 @@ def main():
     for name, ctx in texels.items():
         for kernel, n in ctx["launches"].items():
             by_path[kernel][name] = n
+    by_path["raster_dense"]["scannet + SIMPLE_RADIAL"] = \
+        scannet_lens["launches"]["raster_dense"]
+    by_path["raster_tile"]["large + lenses"] = \
+        large_lens["launches"]["raster_tile"]
+    by_path["raster_tile"]["default texels + lenses"] = \
+        texel_lens["tile"]["launches"]["raster_tile"]
+    by_path["raster_dense"]["default texels + lenses, forced dense"] = \
+        texel_lens["dense"]["launches"]["raster_dense"]
     del large, scannet
     batch_throughput("dense", dense_ctx, device, card)
     del dense_ctx
@@ -1371,6 +1830,15 @@ def main():
         texel_times(name, ctx, device, card)
         batch_throughput(name, ctx, device, card)
     del texels
+    lens_times(large_lens, scannet_lens, device, card)
+    batch_throughput("scannet", scannet_lens, device, card,
+                     "scannet + SIMPLE_RADIAL")
+    batches_in_turns("scannet", scannet_lens["pinhole_batch"],
+                     "scannet + SIMPLE_RADIAL", scannet_lens["batch"], card)
+    batch_throughput("large", large_lens, device, card, "large + lenses")
+    batch_throughput("default", texel_lens["tile"], device, card,
+                     "default texels + lenses")
+    del scannet_lens, large_lens, texel_lens
 
     kernels = [{
         "name": "raster_tile",

@@ -56,8 +56,7 @@ class Camera:
     principal_point: np.ndarray
     resolution: tuple = field(default=(0, 0))
     # (4,) (k1, k2, p1, p2) classic wire (zeros = pinhole), or the (9,)
-    # extended wire (8 param slots + model selector); the renderers of this
-    # package accept only an all-zero lens so far
+    # extended wire (8 param slots + model selector, geometry.LENS_*)
     distortion: np.ndarray = None
 
     def __init__(self, rotation, translation, resolution=None, focal_lengths=None,

@@ -1,19 +1,23 @@
 """Batched single-device render+fuse pipeline.
 
 Counterpart of the single-device part of `semantic_meshes/distributed.py`:
-`render_and_accumulate`, `fuse_views`, `FusePlan`, `plan_fuse`,
-`fuse_views_planned`, `fuse_views_split` and `fuse_views_texels`. The JAX
-package scans the views inside one compiled program; here each batched
-fusion is a Python loop over views whose every step stays on the device
-(no host sync), with the (P, C) accumulator in device memory. Multi-device
-sharding and lens distortion (`resample_grid`, `lens_shared`,
-`distortions`, `shared_lens`) are not ported yet (see ROADMAP).
+`render_and_accumulate`, `lens_shared`, `fuse_views`, `FusePlan`,
+`plan_fuse`, `fuse_views_planned`, `fuse_views_split` and
+`fuse_views_texels`. The JAX package scans the views inside one compiled
+program; here each batched fusion is a Python loop over views whose every
+step stays on the device (no host sync), with the (P, C) accumulator in
+device memory. Distorted views (`distortions`, any COLMAP lens) render
+under their virtual-pinhole focal and gather the primitive image onto the
+distorted pixels before they fuse; `shared_lens` computes the
+undistortion grid once for a batch of one physical camera. Multi-device
+sharding is not ported yet (see ROADMAP).
 
 Layout: probs here are (N, H, W, C), not the public API's (W, H).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import fusion
@@ -27,7 +31,7 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
                           height, width, max_tris_per_tile=256,
                           prim_transform=None, face_vertices=None,
                           dense_e_cap=None, tri_ids=None, backend=None,
-                          device="cuda"):
+                          resample_grid=None, device="cuda"):
     """One fused render+aggregate step on one view.
 
     camera_arrays: (rotation, translation, focal_lengths, principal_point).
@@ -35,7 +39,13 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
     rasterizer's probed budget (FusePlan); tri_ids: (T,) ids to emit per
     face row (a split plan's original face ids). prim_transform: optional
     `fn(tri_index, depth, camera_arrays) -> (H, W) primitive ids` (the
-    texel shader); without it the triangle ids are the primitives. Returns
+    texel shader); without it the triangle ids are the primitives.
+    resample_grid: optional (H, W, 2) undistorted normalized rays of the
+    distorted pixel centres (render._undistort_grid), with the virtual
+    (scaled) focal in camera_arrays: rasterizer and prim_transform run in
+    pinhole space, and one gather maps the primitive image onto the
+    distorted pixels before it fuses, as the per-view render() -> add()
+    path does. Returns
     ((P, C) fusion delta, overflow int32 tensor): overflow counts the
     candidate pairs and micro rows the rasterizer dropped under its budgets
     this view.
@@ -49,6 +59,9 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
     )
     if prim_transform is not None:
         tri = prim_transform(tri, depth, camera_arrays)
+    if resample_grid is not None:
+        ix, iy = render._sample_pixel(resample_grid, fl, pp, width, height)
+        tri = tri.reshape(-1)[iy * width + ix]
     probs = fusion._as_f32(probs, device)
     if weights is not None:
         weights = fusion._as_f32(weights, device)
@@ -59,11 +72,30 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
     return delta, overflow
 
 
+def lens_shared(focal_lengths, principal_points, distortions):
+    """True when every view carries the same (focal_lengths,
+    principal_point, distortion): one physical camera, COLMAP's usual
+    workspace. The fusions can then compute the undistortion grid once
+    per batch (`shared_lens=True`) instead of once per view. A host-side
+    compare of the inputs' values; plan_fuse stores it on the FusePlan."""
+    if distortions is None:
+        return False
+    fl, pp, d = (_host(a) for a in (focal_lengths, principal_points,
+                                    distortions))
+    return bool((fl == fl[:1]).all() and (pp == pp[:1]).all()
+                and (d == d[:1]).all())
+
+
+def _host(a):
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
 def fuse_views(vertices, faces, rotations, translations, focal_lengths,
                principal_points, probs, images_equal_weight, weights=None,
-               prim_remap=None, *, num_primitives, aggregator, height, width,
-               max_tris_per_tile=256, dense_e_cap=None, backend=None,
-               predict_fn=None, prim_transform=None, device="cuda"):
+               distortions=None, prim_remap=None, *, num_primitives,
+               aggregator, height, width, max_tris_per_tile=256,
+               dense_e_cap=None, backend=None, predict_fn=None,
+               prim_transform=None, shared_lens=False, device="cuda"):
     """Render and fuse N views into one accumulator.
 
     rotations (N,3,3), translations (N,3), focal_lengths/principal_points
@@ -72,6 +104,14 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     (accumulator (P, C), overflow int32 tensor): read the accumulator out
     with fusion._get / MeshAggregator.state; overflow must be 0 in a
     correctly budgeted run. No step syncs with the host.
+
+    distortions: optional (N, 4|9) lens wires (data.stack_distortions).
+    Every view then renders under its virtual focal and resamples onto
+    its distorted pixels (render_and_accumulate resample_grid); a zero
+    lens among them gives its pinhole render's ids. Equals the per-view
+    render() -> add() path. shared_lens: every view has the same lens and
+    intrinsics (lens_shared): the grid is computed once, from view 0; the
+    result is bit-identical.
 
     prim_remap: optional (T,) int32 primitive id to emit per face row, how
     a split plan returns its accumulator in original face order (the dense
@@ -85,6 +125,15 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     vertices = fusion._as_f32(vertices, device)
     faces = torch.as_tensor(faces, dtype=torch.int64, device=device)
     face_vertices = vertices[faces]  # one gather for all views
+    hoisted = None
+    if distortions is not None:
+        focal_lengths, principal_points, distortions = (
+            fusion._as_f32(a, device)
+            for a in (focal_lengths, principal_points, distortions))
+        if shared_lens:
+            hoisted = render._undistort_grid(
+                focal_lengths[0], principal_points[0], distortions[0],
+                height=height, width=width)
     if prim_remap is not None:
         prim_remap = torch.as_tensor(prim_remap, dtype=torch.int32,
                                      device=device)
@@ -94,16 +143,22 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
         pr = probs[i]
         if predict_fn is not None:
             pr = predict_fn(pr)
+        fl, grid = focal_lengths[i], None
+        if distortions is not None:
+            grid, s = hoisted if hoisted is not None else \
+                render._undistort_grid(fl, principal_points[i],
+                                       distortions[i], height=height,
+                                       width=width)
+            fl = fl * s  # the rasterizer, shader and gather's focal
         delta, ov = render_and_accumulate(
             vertices, faces,
-            (rotations[i], translations[i], focal_lengths[i],
-             principal_points[i]),
+            (rotations[i], translations[i], fl, principal_points[i]),
             pr, None if weights is None else weights[i], images_equal_weight,
             num_primitives=num_primitives, aggregator=aggregator,
             height=height, width=width, max_tris_per_tile=max_tris_per_tile,
             prim_transform=prim_transform, face_vertices=face_vertices,
             dense_e_cap=dense_e_cap, tri_ids=prim_remap, backend=backend,
-            device=device,
+            resample_grid=grid, device=device,
         )
         acc = delta if acc is None else acc + delta
         overflow = overflow + ov
@@ -117,21 +172,21 @@ def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
                       principal_points, probs, images_equal_weight,
                       weights=None, distortions=None, *, num_primitives,
                       aggregator, height, width, max_tris_per_tile=256,
-                      clip_near=False, dense_e_cap=None, predict_fn=None,
-                      shared_lens=False, device="cuda"):
+                      clip_near=False, dense_e_cap=None, backend=None,
+                      predict_fn=None, shared_lens=False, device="cuda"):
     """Batched texel-mode fusion: fuse_views with the texel shader between
     the rasterizer and the fusion, so the primitives are a TexelsRenderer's
     texels (pass its reordered `faces`, `resolutions`, `first_texel_index`
     and getPrimitivesNum()). Returns (accumulator (P, C), overflow int32
     tensor), like fuse_views; no step syncs with the host.
 
-    dense_e_cap: the dense budget of `plan_fuse(..., allow_split=False)`
-    (texel tables are per face, so a texel plan never splits). predict_fn:
-    see fuse_views. Lens distortion (`distortions`, `shared_lens`) and
-    `clip_near` raise NotImplementedError (not ported yet)."""
-    if distortions is not None or shared_lens:
-        raise NotImplementedError(
-            "lens distortion: not ported yet, see ROADMAP")
+    dense_e_cap / backend: the dense budget of `plan_fuse(...,
+    allow_split=False)` (texel tables are per face, so a texel plan never
+    splits) and the backend it was planned for. distortions,
+    shared_lens: see fuse_views; texels shade under the virtual focal,
+    then the texel image is resampled onto the distorted pixels.
+    predict_fn: see fuse_views. `clip_near` raises NotImplementedError
+    (not ported yet)."""
     if clip_near:
         raise NotImplementedError(
             "near-plane clipping: not ported yet, see ROADMAP")
@@ -153,10 +208,11 @@ def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
     return fuse_views(
         vertices, faces, *(fusion._as_f32(a, device) for a in (
             rotations, translations, focal_lengths, principal_points)),
-        probs, images_equal_weight, weights, num_primitives=num_primitives,
-        aggregator=aggregator, height=height, width=width,
-        max_tris_per_tile=max_tris_per_tile, dense_e_cap=dense_e_cap,
-        predict_fn=predict_fn, prim_transform=shade, device=device,
+        probs, images_equal_weight, weights, distortions,
+        num_primitives=num_primitives, aggregator=aggregator, height=height,
+        width=width, max_tris_per_tile=max_tris_per_tile,
+        dense_e_cap=dense_e_cap, backend=backend, predict_fn=predict_fn,
+        prim_transform=shade, shared_lens=shared_lens, device=device,
     )
 
 
@@ -167,8 +223,9 @@ class FusePlan:
     from the rasterizer's row ids to original face ids (faces[remap] is
     the permuted order). The remap rides the dense rasterizer's tables, so
     the accumulator lands in original face order and depth ties break by
-    the original id, as in the unpermuted run. `lens_shared` is always
-    False: lens distortion is not ported."""
+    the original id, as in the unpermuted run. `lens_shared`: every view
+    shares one lens and intrinsics (see lens_shared), so the fusions may
+    compute the undistortion grid once."""
 
     __slots__ = ("faces", "dense_e_cap", "remap", "micro_max", "split_k",
                  "lens_shared")
@@ -185,7 +242,8 @@ class FusePlan:
 
 def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
               principal_points, *, height, width, backend=None,
-              micro_max=None, allow_split=True, route=None, device="cuda"):
+              micro_max=None, distortions=None, allow_split=True, route=None,
+              device="cuda"):
     """Probe a scene once and build the FusePlan every batched fusion
     shares. For the tile rasterizer this is a no-op plan (no probes, no
     budget). For the dense rasterizer: the routing pick (micro_max=None:
@@ -193,16 +251,27 @@ def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
     `route` overriding its cost coefficients) or the stats at a fixed
     micro_max, then the choice between the uni-slot prefix and micro
     compaction (dense.split_wins; the two are mutually exclusive).
-    allow_split=False always plans compaction. A few host syncs in all,
-    never one per view."""
+    allow_split=False always plans compaction. distortions: (N, 4|9) lens
+    wires or None; the probes then run under each view's virtual focal
+    (render._distortion_scales), the focal its render rasterizes with. A
+    few host syncs in all, never one per view."""
     device = resolve_device(device)
     faces_t = torch.as_tensor(faces, dtype=torch.int64, device=device)
     n_rows = int(faces_t.shape[0])
+    shared = lens_shared(focal_lengths, principal_points, distortions)
     if not rast.uses_dense(backend, n_rows):
-        return FusePlan(faces_t, None)
+        return FusePlan(faces_t, None, lens_shared=shared)
     dense = rast.dense
     face_vertices = fusion._as_f32(vertices, device)[faces_t]
-    cams = (rotations, translations, focal_lengths, principal_points)
+    fl = focal_lengths
+    if distortions is not None and np.any(_host(distortions)):
+        s = render._distortion_scales(
+            *(fusion._as_f32(a, device) for a in (
+                focal_lengths, principal_points, distortions)),
+            height=height, width=width)
+        fl = _host(focal_lengths).astype(np.float32) * \
+            s.cpu().numpy()[:, None]
+    cams = (rotations, translations, fl, principal_points)
     kw = dict(face_vertices=face_vertices, height=height, width=width,
               device=device)
     if micro_max is None:
@@ -224,13 +293,13 @@ def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
                 faces_t[perm_t],
                 (dense.BUDGET_MARGIN * pairs_s, 0, micro_max, k),
                 remap=perm_t.to(torch.int32), micro_max=micro_max,
-                split_k=k,
+                split_k=k, lens_shared=shared,
             )
     return FusePlan(
         faces_t,
         (dense.BUDGET_MARGIN * pairs, dense.BUDGET_MARGIN * micro,
          micro_max),
-        micro_max=micro_max,
+        micro_max=micro_max, lens_shared=shared,
     )
 
 
@@ -240,9 +309,15 @@ def fuse_views_planned(plan, vertices, rotations, translations,
                        num_primitives, aggregator, height, width, **kwargs):
     """fuse_views under a FusePlan (no probes). The accumulator comes out
     in original face order even when the plan split. Equals
-    fuse_views(faces) on the plan's backend."""
+    fuse_views(faces) on the plan's backend. A plan whose views share one
+    lens hoists the grid, once lens_shared has held for this batch's
+    `distortions` too (a plan may be reused on other views)."""
     if plan.dense_e_cap is not None:
         kwargs.setdefault("backend", "dense")
+    dists = kwargs.get("distortions")
+    if dists is not None and plan.lens_shared:
+        kwargs.setdefault("shared_lens", lens_shared(
+            focal_lengths, principal_points, dists))
     return fuse_views(
         vertices, plan.faces, rotations, translations, focal_lengths,
         principal_points, probs, images_equal_weight, weights,
@@ -256,17 +331,20 @@ def fuse_views_split(vertices, faces, rotations, translations,
                      focal_lengths, principal_points, probs,
                      images_equal_weight, weights=None, *, num_primitives,
                      aggregator, height, width, backend=None, micro_max=None,
-                     route=None, device="cuda", **kwargs):
+                     distortions=None, route=None, device="cuda", **kwargs):
     """plan_fuse + fuse_views_planned in one call: the dense path's
     uni-slot prefix where dense.split_wins says it beats micro compaction,
     right-sized compaction budgets otherwise. Equals fuse_views."""
     plan = plan_fuse(
         vertices, faces, rotations, translations, focal_lengths,
         principal_points, height=height, width=width, backend=backend,
-        micro_max=micro_max, route=route, device=device,
+        micro_max=micro_max, distortions=distortions, route=route,
+        device=device,
     )
     if backend is not None:
         kwargs["backend"] = backend
+    if distortions is not None:
+        kwargs["distortions"] = distortions
     return fuse_views_planned(
         plan, vertices, rotations, translations, focal_lengths,
         principal_points, probs, images_equal_weight, weights,

@@ -1,13 +1,13 @@
-"""Pinhole geometry: rotations, rigid transforms, projection, texel grid.
+"""Geometry: rotations, rigid transforms, projection, lens models, texels.
 
-Counterpart of the pinhole and texel subset of `semantic_meshes/geometry.py`:
-`quaternion_to_rotation` and `look_at` run in numpy on the host (they build
-camera parameters); `rigid_transform`, `pinhole_project`, the barycentric
-helpers, the texel grid (`texel_count`, `texel_index(_uv)`) and
-`reorder_faces_for_texels` run in torch on whatever device their inputs
-live on. The `LENS_*` selector constants are kept because `io/colmap.py`
-writes them into the extended lens wire; the distortion models themselves
-are not ported yet.
+Counterpart of `semantic_meshes/geometry.py` without the near-plane
+clipping: `quaternion_to_rotation` and `look_at` run in numpy on the host
+(they build camera parameters); `rigid_transform`, `pinhole_project`, the
+COLMAP lens models (`distort_normalized`, `undistort_normalized`,
+`max_monotonic_radius` on the classic (..., 4) and the extended (..., 9)
+wire), the barycentric helpers, the texel grid (`texel_count`,
+`texel_index(_uv)`) and `reorder_faces_for_texels` run in torch on
+whatever device their inputs live on.
 
 Precision: the 3x3 transform is written out elementwise (as
 `semantic_meshes/rasterize/xla.py::_face_vertices_cam` does), so no matmul
@@ -20,13 +20,32 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.func import jvp
 
-# lens-model selectors of the extended (9,) distortion wire (slot 8)
+# Lens models (COLMAP camera_models.h Distortion()) on normalized camera
+# coordinates (x/z, y/z). The classic (..., 4) wire is (k1, k2, p1, p2),
+# the OPENCV model (SIMPLE_RADIAL = (k1, 0, 0, 0), RADIAL = (k1, k2, 0, 0)).
+# The extended (..., 9) wire is 8 parameter slots + a model selector in
+# slot 8:
+#   LENS_RADTAN (0): (k1, k2, p1, p2, k3, k4, k5, k6), FULL_OPENCV's
+#       rational radial polynomial + OpenCV tangential terms (k3..k6 = 0
+#       is OPENCV, so a zero-padded classic vector is the same model);
+#   LENS_FISHEYE (1): (k1, k2, k3, k4, 0, ...), equidistant fisheye
+#       theta_d = theta (1 + k1 th2 + k2 th4 + k3 th6 + k4 th8),
+#       theta = atan(r) (OPENCV_FISHEYE, SIMPLE_RADIAL_FISHEYE,
+#       RADIAL_FISHEYE); zero ks is NOT the identity;
+#   LENS_FOV (2): (omega, 0, ...), r_d = atan(2 r tan(omega/2)) / omega;
+#   LENS_THIN_PRISM (3): (k1, k2, p1, p2, k3, k4, sx1, sy1),
+#       THIN_PRISM_FISHEYE: the equidistant projection, then radial +
+#       tangential + thin-prism terms; zero params is NOT the identity.
 LENS_RADTAN = 0.0
 LENS_FISHEYE = 1.0
 LENS_FOV = 2.0
 LENS_THIN_PRISM = 3.0
 LENS_EXTENDED_DIM = 9
+# samples of the extended wire's radial response: undistorted radii
+# tan(theta) on a uniform theta grid out to ~88.8 degrees
+RESPONSE_SAMPLES = 512
 
 
 def quaternion_to_rotation(q):
@@ -97,6 +116,259 @@ def pinhole_project(focal_lengths, principal_point, points_cam):
     py = focal_lengths[1] * (points_cam[..., 1] / points_cam[..., 2]) + \
         principal_point[1]
     return torch.stack([px, py], dim=-1)
+
+
+# -------------------------------------------------------------- lens models
+# Every jnp op of the JAX functions is one torch op here, in the same order
+# and with the same `where` nesting; divisions are true divisions (a python
+# scalar over a tensor would be a reciprocal times a multiply).
+
+
+def _rdiv(c, x):
+    """c / x for a python scalar c, as a true division."""
+    return torch.div(torch.full_like(x, c), x)
+
+
+def _distort_extended(xy, dist):
+    """Forward distortion on the extended (..., 9) wire
+    (`semantic_meshes.geometry._distort_extended`): all four families
+    computed branch-free, then selected by slot 8. The `where`s at r < 1e-8
+    also mask the NaN tangent of sqrt at r = 0, which the Newton Jacobian
+    (torch.func.jvp) would otherwise carry to the principal point."""
+    x, y = xy[..., 0], xy[..., 1]
+    s = [dist[..., i] for i in range(8)]
+    sel = dist[..., 8]
+    x2, y2, xyp = x * x, y * y, x * y
+    r2 = x2 + y2
+
+    # radial-tangential, rational polynomial (FULL_OPENCV)
+    k1, k2, p1, p2, k3, k4, k5, k6 = s
+    num = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+    den = 1.0 + r2 * (k4 + r2 * (k5 + r2 * k6))
+    rad = num / torch.where(den == 0.0, 1.0, den)
+    xt = x * rad + 2.0 * p1 * xyp + p2 * (r2 + 2.0 * x2)
+    yt = y * rad + p1 * (r2 + 2.0 * y2) + 2.0 * p2 * xyp
+
+    # equidistant fisheye (OPENCV_FISHEYE family): slots 0..3 are k1..k4
+    fk1, fk2, fk3, fk4 = s[0], s[1], s[2], s[3]
+    r = torch.sqrt(r2)
+    theta = torch.atan(r)
+    t2 = theta * theta
+    theta_d = theta * (
+        1.0 + t2 * (fk1 + t2 * (fk2 + t2 * (fk3 + t2 * fk4)))
+    )
+    safe_r = torch.clamp(r, min=1e-8)
+    # r -> 0: theta ~ r and t2 -> 0, so the scale limit is exactly 1
+    fish = torch.where(r < 1e-8, 1.0, theta_d / safe_r)
+
+    # FOV model: slot 0 is omega
+    w = s[0]
+    tw = torch.tan(0.5 * w)
+    safe_w = torch.where(torch.abs(w) < 1e-6, 1.0, w)
+    fov_gen = torch.atan(2.0 * safe_r * tw) / (safe_r * safe_w)
+    fov = torch.where(r < 1e-8, 2.0 * tw / safe_w, fov_gen)
+    fov = torch.where(torch.abs(w) < 1e-6, 1.0, fov)
+
+    # thin-prism fisheye: the equidistant projection, then radial (slots
+    # 0, 1, 4, 5) + tangential (2, 3) + thin prism (6, 7) on the projected
+    # coords, COLMAP's order (k1, k2, p1, p2, k3, k4, sx1, sy1)
+    eq = torch.where(r < 1e-8, 1.0, theta / safe_r)
+    uu, vv = x * eq, y * eq
+    u2, v2, uv = uu * uu, vv * vv, uu * vv
+    q2 = u2 + v2
+    tk1, tk2, tp1, tp2 = s[0], s[1], s[2], s[3]
+    tk3, tk4, sx1, sy1 = s[4], s[5], s[6], s[7]
+    t_rad = q2 * (tk1 + q2 * (tk2 + q2 * (tk3 + q2 * tk4)))
+    du = uu * t_rad + 2.0 * tp1 * uv + tp2 * (q2 + 2.0 * u2) + sx1 * q2
+    dv = vv * t_rad + tp1 * (q2 + 2.0 * v2) + 2.0 * tp2 * uv + sy1 * q2
+    out_tpf = torch.stack([uu + du, vv + dv], dim=-1)
+
+    scale = torch.where(sel == LENS_FISHEYE, fish,
+                        torch.where(sel == LENS_FOV, fov, 1.0))
+    out_scaled = xy * scale[..., None]
+    out_radtan = torch.stack([xt, yt], dim=-1)
+    return torch.where(
+        (sel == LENS_RADTAN)[..., None], out_radtan,
+        torch.where((sel == LENS_THIN_PRISM)[..., None], out_tpf,
+                    out_scaled),
+    )
+
+
+def _undistort_extended(xy_distorted, dist, iters=30):
+    """Newton inversion of _distort_extended
+    (`semantic_meshes.geometry._undistort_extended`): the 2x2 Jacobian's
+    columns are jvps of the forward map along x and y (one
+    torch.func.jvp of the point stacked twice, the two tangents side by
+    side: the same elementwise values as two jvps, for half the launches),
+    a Jacobian with |det| <= 1e-12 takes no step, and every iterate is
+    clamped to the ball of radius 100, so a pixel outside the invertible
+    domain cannot run to inf/nan (render._undistort_grid clamps those
+    afterwards)."""
+    def fwd(xy):
+        return _distort_extended(xy, dist)
+
+    tangents = torch.zeros((2,) + xy_distorted.shape,
+                           dtype=xy_distorted.dtype,
+                           device=xy_distorted.device)
+    tangents[0, ..., 0] = 1.0
+    tangents[1, ..., 1] = 1.0
+    xy = xy_distorted
+    for _ in range(iters):
+        fxy, jac = jvp(fwd, (torch.stack([xy, xy]),), (tangents,))
+        fxy = fxy[0]
+        a, c = jac[0, ..., 0], jac[0, ..., 1]
+        b, d = jac[1, ..., 0], jac[1, ..., 1]
+        rx = fxy[..., 0] - xy_distorted[..., 0]
+        ry = fxy[..., 1] - xy_distorted[..., 1]
+        det = a * d - b * c
+        inv_det = torch.where(torch.abs(det) > 1e-12, _rdiv(1.0, det), 0.0)
+        nx = xy[..., 0] - (d * rx - b * ry) * inv_det
+        ny = xy[..., 1] - (a * ry - c * rx) * inv_det
+        nrm = torch.sqrt(nx * nx + ny * ny)
+        shrink = torch.clamp(_rdiv(100.0, torch.clamp(nrm, min=1e-8)),
+                             max=1.0)
+        xy = torch.stack([nx * shrink, ny * shrink], dim=-1)
+    return xy
+
+
+def distort_normalized(xy, dist):
+    """Forward lens distortion of normalized camera coords (x/z, y/z)
+    (`semantic_meshes.geometry.distort_normalized`).
+
+    xy (..., 2) f32; dist (..., 4) = (k1, k2, p1, p2) or the extended
+    (..., 9) wire, broadcastable against xy's batch shape. For the 4-wide
+    wire:
+        r2 = x^2 + y^2;  radial = k1 r2 + k2 r2^2
+        x' = x (1 + radial) + 2 p1 x y + p2 (r2 + 2 x^2)
+        y' = y (1 + radial) + p1 (r2 + 2 y^2) + 2 p2 x y
+    """
+    if dist.shape[-1] == LENS_EXTENDED_DIM:
+        return _distort_extended(xy, dist)
+    x, y = xy[..., 0], xy[..., 1]
+    k1, k2, p1, p2 = (dist[..., i] for i in range(4))
+    x2, y2, xyp = x * x, y * y, x * y
+    r2 = x2 + y2
+    radial = k1 * r2 + k2 * r2 * r2
+    dx = x * radial + 2.0 * p1 * xyp + p2 * (r2 + 2.0 * x2)
+    dy = y * radial + p1 * (r2 + 2.0 * y2) + 2.0 * p2 * xyp
+    return xy + torch.stack([dx, dy], dim=-1)
+
+
+def undistort_normalized(xy_distorted, dist, iters=20):
+    """Invert distort_normalized by Newton iteration on the 2x2 Jacobian
+    (`semantic_meshes.geometry.undistort_normalized`; COLMAP's
+    IterativeUndistortion with a fixed iteration count). The classic wire
+    takes `iters` steps of the closed-form Jacobian; the extended wire
+    max(iters, 30) steps of _undistort_extended. Elementwise over (..., 2)
+    f32 points."""
+    if dist.shape[-1] == LENS_EXTENDED_DIM:
+        return _undistort_extended(xy_distorted, dist, iters=max(iters, 30))
+    k1, k2, p1, p2 = (dist[..., i] for i in range(4))
+    xy = xy_distorted
+    for _ in range(iters):
+        x, y = xy[..., 0], xy[..., 1]
+        x2, y2, xyp = x * x, y * y, x * y
+        r2 = x2 + y2
+        radial = k1 * r2 + k2 * r2 * r2
+        dradial = 2.0 * k1 + 4.0 * k2 * r2  # d(radial)/d(r2) * 2
+        fx = x * (1.0 + radial) + 2.0 * p1 * xyp + p2 * (r2 + 2.0 * x2) \
+            - xy_distorted[..., 0]
+        fy = y * (1.0 + radial) + p1 * (r2 + 2.0 * y2) + 2.0 * p2 * xyp \
+            - xy_distorted[..., 1]
+        jxx = 1.0 + radial + x2 * dradial + 2.0 * p1 * y + 6.0 * p2 * x
+        jxy = xyp * dradial + 2.0 * p1 * x + 2.0 * p2 * y
+        jyy = 1.0 + radial + y2 * dradial + 6.0 * p1 * y + 2.0 * p2 * x
+        det = jxx * jyy - jxy * jxy
+        inv_det = torch.where(torch.abs(det) > 1e-12, _rdiv(1.0, det), 0.0)
+        nx = x - (jyy * fx - jxy * fy) * inv_det
+        ny = y - (jxx * fy - jxy * fx) * inv_det
+        xy = torch.stack([nx, ny], dim=-1)
+    return xy
+
+
+def max_monotonic_radius(dist):
+    """Largest undistorted radius within the lens's invertible (monotonic)
+    range, or +inf (`semantic_meshes.geometry.max_monotonic_radius`).
+
+    Classic wire: r (1 + k1 r^2 + k2 r^4) folds where its derivative
+    1 + 3 k1 r^2 + 5 k2 r^4 is zero; the fold is the square root of the
+    smallest positive root x of 5 k2 x^2 + 3 k1 x + 1 (the tangential
+    terms are ignored). The extended wire uses the monotone prefix of the
+    sampled radial response (_max_monotonic_radius_extended)."""
+    if dist.shape[-1] == LENS_EXTENDED_DIM:
+        return _max_monotonic_radius_extended(dist)
+    k1, k2 = dist[..., 0], dist[..., 1]
+    disc = 9.0 * k1 * k1 - 20.0 * k2
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    quad_ok = (k2 != 0) & (disc >= 0)
+    denom_q = torch.where(k2 == 0, 1.0, 10.0 * k2)
+    lin_ok = (k2 == 0) & (k1 < 0)
+    denom_l = torch.where(k1 == 0, 1.0, 3.0 * k1)
+
+    def pos_or_inf(x, ok):
+        return torch.where(ok & (x > 0), x, float("inf"))
+
+    x_min = torch.minimum(
+        torch.minimum(
+            pos_or_inf((-3.0 * k1 - sq) / denom_q, quad_ok),
+            pos_or_inf((-3.0 * k1 + sq) / denom_q, quad_ok),
+        ),
+        pos_or_inf(_rdiv(-1.0, denom_l), lin_ok),
+    )
+    return torch.sqrt(x_min)
+
+
+def _radial_only_wire(dist):
+    """An extended wire with its non-radial terms zeroed, for the radial
+    response (`semantic_meshes.geometry._radial_only_wire`): slots 2, 3
+    (tangential p1, p2) of the radtan and thin-prism families (fisheye
+    keeps them: they are its k3, k4) and the thin prism's sx1, sy1 (slots
+    6, 7), which shift even on-axis samples."""
+    sel = dist[..., 8]
+    tang = ((sel == LENS_RADTAN) | (sel == LENS_THIN_PRISM))[..., None]
+    prism = (sel == LENS_THIN_PRISM)[..., None]
+    return torch.cat([
+        dist[..., :2],
+        torch.where(tang, 0.0, dist[..., 2:4]),
+        dist[..., 4:6],
+        torch.where(prism, 0.0, dist[..., 6:8]),
+        dist[..., 8:],
+    ], dim=-1)
+
+
+def _response_radii(device):
+    """The undistorted radii r = tan(theta) of the radial response, theta
+    on RESPONSE_SAMPLES uniform steps of [1e-3, 1.55] (~88.8 degrees). The
+    JAX package takes jnp.tan of an f32 jnp.linspace; here the table is
+    rounded once from float64, so the card and the CPU read the same
+    radii."""
+    theta = np.linspace(1e-3, 1.55, RESPONSE_SAMPLES)
+    return torch.as_tensor(np.tan(theta).astype(np.float32), device=device)
+
+
+def _radial_response(dist):
+    """Sampled forward radial response of an extended-wire lens
+    (`semantic_meshes.geometry._radial_response`): (r, rd, good) with the
+    radii r of _response_radii, the distorted radius rd(r) on the x-axis
+    under _radial_only_wire, and the mask of the strictly increasing
+    (invertible) prefix. dist (..., 9); rd and good (..., samples)."""
+    r = _response_radii(dist.device)
+    pts = torch.stack([r, torch.zeros_like(r)], dim=-1)
+    rd = _distort_extended(pts, _radial_only_wire(dist)[..., None, :])[..., 0]
+    inc = (rd[..., 1:] > rd[..., :-1]).to(torch.float32)
+    good = torch.cat([torch.ones_like(inc[..., :1]),
+                      torch.cumprod(inc, dim=-1)], dim=-1) > 0
+    return r, rd, good
+
+
+def _max_monotonic_radius_extended(dist):
+    """The largest sampled radius whose response prefix is strictly
+    increasing, or +inf when the whole sampled response is
+    (`semantic_meshes.geometry._max_monotonic_radius_extended`)."""
+    r, _, good = _radial_response(dist)
+    count = good.sum(dim=-1) - 1  # increasing steps of the prefix
+    return torch.where(count == RESPONSE_SAMPLES - 1, float("inf"),
+                       r[count])
 
 
 # ---------------------------------------------------------------- triangles

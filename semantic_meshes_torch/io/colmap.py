@@ -50,8 +50,7 @@ class ColmapCamera:
     # lens distortion on normalized coords: canonical (k1, k2, p1, p2) for
     # the classic models (zeros for pinhole), or the extended 9-wide wire
     # (8 param slots + model selector) for FULL_OPENCV / fisheye / FOV /
-    # THIN_PRISM_FISHEYE (selectors in geometry.LENS_*; the lens models
-    # themselves live in the JAX package's geometry.py, not ported yet)
+    # THIN_PRISM_FISHEYE (selectors and lens models in geometry.py)
     distortion: np.ndarray = None
 
     def __post_init__(self):

@@ -1,5 +1,4 @@
-"""Public render API: `triangles(mesh)` and `texels(mesh, cameras, tpp)`,
-pinhole cameras.
+"""Public render API: `triangles(mesh)` and `texels(mesh, cameras, tpp)`.
 
 Counterpart of `TrianglesRenderer`, `TexelsRenderer`, `_OverflowPolicy`,
 `_DenseCapPolicy`, the dense probes, the texel sizing and shader, and
@@ -19,10 +18,16 @@ budgets the renderer probes once per resolution (`_DenseCapPolicy`). Texel
 mode rasterizes whole triangles the same way and turns each pixel's
 triangle id into a texel id with `_texel_prim_image`.
 
-Not ported yet (see ROADMAP): lens distortion (a camera with a nonzero
-lens raises), near-plane clipping (`clip_near=True` raises), and the
-face-count bucketing that the JAX package uses only to share jit
-compilations (`bucket=` is accepted and changes nothing).
+A camera with a nonzero lens (any COLMAP model, on the classic (4,) or
+the extended (9,) wire, see geometry.py) renders as a pinhole render under
+a virtual focal fl * s (s <= 1, from `_undistort_grid`), shaded there, and
+then one gather that samples that image at each distorted pixel's
+undistorted ray (`_resample_wh`). A zero lens inside a distorted batch
+takes that path too and gives the pinhole render's bits.
+
+Not ported yet (see ROADMAP): near-plane clipping (`clip_near=True`
+raises), and the face-count bucketing that the JAX package uses only to
+share jit compilations (`bucket=` is accepted and changes nothing).
 """
 
 from __future__ import annotations
@@ -34,18 +39,21 @@ import torch
 
 from . import geometry
 from . import rasterize as rast
-from .data import Camera, Colmap, Ply, resolve_device, stack_cameras
+from .data import (Camera, Colmap, Ply, resolve_device, stack_cameras,
+                   stack_distortions)
+from .fusion import _as_f32
+from .rasterize.dense import _to_i32
 
 logger = logging.getLogger("semantic_meshes_torch")
 
 
-def check_pinhole(cameras):
+def _has_distortion(cameras):
+    """True when any camera carries a nonzero lens (host-side check)."""
     for c in cameras:
         d = getattr(c, "distortion", None)
         if d is not None and np.any(np.asarray(d)):
-            raise NotImplementedError(
-                "lens distortion: not ported yet, see ROADMAP"
-            )
+            return True
+    return False
 
 
 def _camera_hw(camera: Camera):
@@ -277,19 +285,32 @@ class TrianglesRenderer:
     def getPrimitivesNum(self) -> int:
         return self._num_faces
 
-    def _dense_e_cap(self, height, width, rot, trans, fl, pp):
+    def _dense_e_cap(self, height, width, rot, trans, fl, pp, dist=None):
         """The dense budget tuple for (height, width), probed over the
         given cameras (a batch, or one camera) on first use; None for the
-        tile backend."""
+        tile backend. dist: the cameras' lenses (None for pinholes); the
+        probe then runs under each view's virtual focal fl * s, the focal
+        its render rasterizes with."""
         if not rast.uses_dense(self.backend, self._num_faces):
             return None
         rot, trans, fl, pp = _batch(rot, trans, fl, pp)
         key = (height, width)
         kw = dict(height=height, width=width, device=self.device)
+
+        def cams():
+            if dist is None:
+                return rot, trans, fl, pp
+            d = np.broadcast_to(np.asarray(dist, np.float32),
+                                (len(fl),) + np.shape(dist)[-1:])
+            s = _distortion_scales(*(_as_f32(a, self.device)
+                                     for a in (fl, pp, d)),
+                                   height=height, width=width)
+            return rot, trans, fl * s.cpu().numpy()[:, None], pp
+
         if self.micro_max is None:
             def probe():
-                curve = _dense_routing_probe(self.face_vertices, rot, trans,
-                                             fl, pp, **kw)
+                curve = _dense_routing_probe(self.face_vertices, *cams(),
+                                             **kw)
                 return rast.dense.pick_route(
                     curve.tolist(), self._num_faces,
                     min_pairs_budget=self.dense_cap_policy.floor(key)[0],
@@ -297,22 +318,37 @@ class TrianglesRenderer:
                 )
         else:
             def probe():
-                stats = _dense_count_probe(self.face_vertices, rot, trans,
-                                           fl, pp, micro_max=self.micro_max,
-                                           **kw)
+                stats = _dense_count_probe(self.face_vertices, *cams(),
+                                           micro_max=self.micro_max, **kw)
                 return stats.tolist() + [self.micro_max]
         return self.dense_cap_policy.lookup(key, probe)
 
-    def _rasterize(self, camera, dense_e_cap):
+    def _view(self, camera, dense_e_cap, dist=None):
+        """(ids (W, H) int32 with -1 empty, depth (W, H) f32, overflow) of
+        one camera. dist: None renders the pinhole; a lens wire (zero or
+        not) renders under the virtual focal fl * s, shades there and
+        resamples onto the distorted pixels, as the JAX package's
+        `_render_triangles_distorted_jit` / `_render_texels_distorted_jit`
+        do."""
         height, width = _camera_hw(camera)
-        return rast.rasterize(
-            self.vertices, self.faces, camera.rotation, camera.translation,
-            camera.focal_lengths, camera.principal_point,
+        rot, trans, fl, pp = _camera_arrays(camera)
+        if dist is not None:
+            fl, pp, dist = (_as_f32(a, self.device) for a in (fl, pp, dist))
+            grid, s = _undistort_grid(fl, pp, dist, height=height,
+                                      width=width)
+            fl = fl * s
+        arrays = (rot, trans, fl, pp)
+        tri, depth, overflow = rast.rasterize(
+            self.vertices, self.faces, *arrays,
             face_vertices=self.face_vertices, backend=self.backend,
             height=height, width=width,
             max_tris_per_tile=self.max_tris_per_tile,
             dense_e_cap=dense_e_cap, device=self.device,
         )
+        ids = self._shade(arrays, tri)
+        if dist is None:
+            return ids.t(), depth.t(), overflow
+        return (*_resample_wh(ids.t(), depth.t(), grid, fl, pp), overflow)
 
     def _check_overflow(self, overflow, key, dense_e_cap):
         """Overflow policy check + dense-budget regrowth: every dense key
@@ -328,38 +364,40 @@ class TrianglesRenderer:
         if new and dense_e_cap is not None:
             self.dense_cap_policy.invalidate(key)
 
-    def _shade(self, camera, tri):
-        """Primitive ids (int32, -1 for none) of a triangle-id image: the
-        triangle ids themselves (TexelsRenderer shades them into texels)."""
+    def _shade(self, camera_arrays, tri):
+        """Primitive ids (int32, -1 for none) of a triangle-id image
+        rasterized under camera_arrays: the triangle ids themselves
+        (TexelsRenderer shades them into texels)."""
         return tri
 
     def render(self, camera: Camera):
         """(ids (W, H) uint32, depth (W, H) f32) on the renderer's device."""
-        check_pinhole([camera])
-        height, width = _camera_hw(camera)
-        dense_e_cap = self._dense_e_cap(height, width,
-                                        *_camera_arrays(camera))
-        tri, depth, overflow = self._rasterize(camera, dense_e_cap)
-        ids = self._shade(camera, tri)
-        self._check_overflow(overflow, (height, width), dense_e_cap)
-        return ids.t().contiguous().view(torch.uint32), depth.t().contiguous()
+        dist = camera.distortion if _has_distortion([camera]) else None
+        hw = _camera_hw(camera)
+        dense_e_cap = self._dense_e_cap(*hw, *_camera_arrays(camera),
+                                        dist=dist)
+        ids, depth, overflow = self._view(camera, dense_e_cap, dist)
+        self._check_overflow(overflow, hw, dense_e_cap)
+        return ids.contiguous().view(torch.uint32), depth.contiguous()
 
     def render_many(self, cameras):
         """Render same-resolution cameras: (ids (N, W, H) uint32, depth
-        (N, W, H) f32). The dense budget is probed over the whole batch."""
+        (N, W, H) f32). The dense budget is probed over the whole batch;
+        when any camera has a lens, every view takes the distorted path
+        (lenses stacked by data.stack_distortions)."""
         cams = list(cameras)
-        check_pinhole(cams)
         hw = _camera_hw(cams[0])
         if any(_camera_hw(c) != hw for c in cams):
             raise ValueError("render_many needs equal camera resolutions")
-        dense_e_cap = self._dense_e_cap(*hw, *stack_cameras(cams))
-        out = [self._rasterize(c, dense_e_cap) for c in cams]
+        lenses = stack_distortions(cams) if _has_distortion(cams) else None
+        dense_e_cap = self._dense_e_cap(*hw, *stack_cameras(cams),
+                                        dist=lenses)
+        out = [self._view(c, dense_e_cap, None if lenses is None else
+                          lenses[k]) for k, c in enumerate(cams)]
         self._check_overflow(torch.stack([o for _, _, o in out]).sum(), hw,
                              dense_e_cap)
-        ids = torch.stack([self._shade(c, tri) for c, (tri, _, _)
-                           in zip(cams, out)]).transpose(1, 2).contiguous()
-        depth = torch.stack([d for _, d, _ in out]).transpose(1, 2)
-        return ids.view(torch.uint32), depth.contiguous()
+        ids = torch.stack([i for i, _, _ in out])
+        return ids.view(torch.uint32), torch.stack([d for _, d, _ in out])
 
     def overflow_total(self) -> int:
         """Total dropped candidate pairs across all renders (syncs once)."""
@@ -367,15 +405,17 @@ class TrianglesRenderer:
 
     def prepare(self, cameras):
         """Pre-size the dense budgets for a whole camera set: one probe of
-        the max over all cameras per resolution, so later renders never
-        breach. A no-op for the tile backend."""
-        cams = list(cameras)
-        check_pinhole(cams)
+        the max over all cameras per resolution (under the virtual focals
+        of distorted cameras), so later renders never breach. A no-op for
+        the tile backend."""
         by_hw = {}
-        for c in cams:
+        for c in cameras:
             by_hw.setdefault(_camera_hw(c), []).append(c)
         for (height, width), group in by_hw.items():
-            self._dense_e_cap(height, width, *stack_cameras(group))
+            self._dense_e_cap(
+                height, width, *stack_cameras(group),
+                dist=stack_distortions(group)
+                if _has_distortion(group) else None)
 
 
 def _texel_resolutions(vertices, faces, cameras, texels_per_pixel):
@@ -461,9 +501,11 @@ class TexelsRenderer(TrianglesRenderer):
     def getPrimitivesNum(self) -> int:
         return self._primitive_num
 
-    def _shade(self, camera, tri):
+    def _shade(self, camera_arrays, tri):
+        # camera_arrays carry the virtual focal of a distorted view: the
+        # shader must see the focal the triangle ids were rasterized under
         prim = _texel_prim_image(
-            self.vertices, self.faces, *_camera_arrays(camera), tri,
+            self.vertices, self.faces, *camera_arrays, tri,
             self.resolutions, self.first_texel_index, self._primitive_num)
         return torch.where(prim < self._primitive_num, prim,
                            torch.full_like(prim, -1))
@@ -525,6 +567,104 @@ def _texel_prim_image(vertices, faces, rotation, translation, focal_lengths,
     valid = (tri_index >= 0) & (res >= 1)
     return torch.where(valid, row[..., 10] + rel,
                        torch.full_like(rel, num_primitives))
+
+
+# ------------------------------------------------------------ lens distortion
+# The rasterizers stay pinhole (straight edges are what tiles need): a
+# distorted view renders under a virtual pinhole whose focal is shrunk just
+# enough to hold every distorted pixel's ray, then one gather samples that
+# image at each distorted pixel's ray (the on-device form of COLMAP's image
+# undistortion, which the reference leaves to its users,
+# ref: include/semantic_meshes/render/Camera.h:9-12).
+
+
+def _undistort_grid(fl, pp, dist, *, height, width):
+    """(undistorted normalized coords (H, W, 2) of every distorted pixel
+    centre, the virtual-pinhole focal scale s <= 1 as a 0-dim tensor that
+    keeps fl * s * n + pp inside the (height, width) image), from f32
+    tensors fl (2,), pp (2,), dist (4,) or (9,) on one device
+    (`semantic_meshes.render._undistort_grid`). No host sync.
+
+    Clamps: the extended wire caps each pixel's radius at the inverse of
+    the sampled radial response at its own distorted radius (one sample
+    up), and pixels past the largest response the lens produces have no
+    ray and take no part in s; the classic wire caps every radius at
+    min(max_monotonic_radius, 3 * the largest distorted radius), so one
+    diverged corner cannot shrink s for the whole frame. A zero lens
+    selects the identity grid and s = 1 structurally, so its render is
+    the pinhole render bit for bit."""
+    yy, xx = rast.tiles.pixel_centres(height, width, 0, dist.device)
+    nd = torch.stack([(xx - pp[0]) / fl[0], (yy - pp[1]) / fl[1]], dim=-1)
+    n = geometry.undistort_normalized(nd, dist)
+    r_d = torch.sqrt(nd[..., 0] * nd[..., 0] + nd[..., 1] * nd[..., 1])
+    r_n = torch.sqrt(n[..., 0] * n[..., 0] + n[..., 1] * n[..., 1])
+    inf = float("inf")
+    valid = None
+    if dist.shape[-1] == geometry.LENS_EXTENDED_DIM:
+        rr, rd_s, good = geometry._radial_response(dist)
+        rd_sorted = torch.where(good, rd_s, inf)
+        rd_prod_max = torch.where(good, rd_s, -inf).max() * 0.999
+        valid = r_d <= rd_prod_max
+        i = torch.searchsorted(rd_sorted, torch.minimum(r_d, rd_prod_max))
+        r_cap = rr[i.clamp(max=rr.shape[0] - 1)]
+    else:
+        r_cap = torch.minimum(geometry.max_monotonic_radius(dist),
+                              3.0 * r_d.max())
+    n = n * torch.clamp(r_cap / torch.clamp(r_n, min=1e-20),
+                        max=1.0)[..., None]
+
+    def axis_scale(nv, f, c, size):
+        # the largest s with 0.5 <= s * f * nv + c <= size - 0.5 at every
+        # pixel; a pixel without a ray (nv = 0) bounds nothing
+        if valid is not None:
+            nv = torch.where(valid, nv, 0.0)
+        fnv = f * nv
+        s = torch.where(nv > 0, (float(size) - 0.5 - c) / fnv,
+                        torch.where(nv < 0, (0.5 - c) / fnv, inf))
+        return s.min()
+
+    s = torch.clamp(torch.minimum(axis_scale(n[..., 0], fl[0], pp[0], width),
+                                  axis_scale(n[..., 1], fl[1], pp[1],
+                                             height)), max=1.0)
+    is_zero = (dist == 0.0).all()
+    return torch.where(is_zero, nd, n), torch.where(is_zero, 1.0, s)
+
+
+def _distortion_scales(fl, pp, dist, *, height, width):
+    """(N,) virtual-pinhole focal scales of a camera batch, f32 tensors fl,
+    pp (N, 2) and dist (N, 4|9): _undistort_grid per view, keeping s (the
+    budget probes run under fl * s, the focal the render uses)."""
+    return torch.stack([
+        _undistort_grid(fl[k], pp[k], dist[k], height=height, width=width)[1]
+        for k in range(len(fl))])
+
+
+def _sample_pixel(grid, fl_s, pp, width, height):
+    """(ix, iy) int64 (H, W): the virtual-pinhole pixel holding each
+    distorted pixel's ray. The float -> int conversion saturates, as XLA's
+    does: a plain cast turns a ray off at infinity into INT_MIN, which the
+    clamp would send to column 0 instead of column width - 1."""
+    px = fl_s[0] * grid[..., 0] + pp[0]
+    py = fl_s[1] * grid[..., 1] + pp[1]
+    return (_to_i32(px).clamp(0, width - 1),
+            _to_i32(py).clamp(0, height - 1))
+
+
+def _resample_wh(idx_wh, depth_wh, grid, fl_s, pp):
+    """Nearest-sample the (W, H) int32 id and f32 depth images of a
+    virtual-pinhole render (focal fl_s) at each distorted pixel's ray
+    grid (H, W, 2): (ids (W, H), depth (W, H))
+    (`semantic_meshes.render._resample_wh`). One gather of 8-byte rows,
+    the id and the depth's bits side by side as int32 lanes, so every bit
+    pattern (the -1 background, ids that read as denormal floats, +inf)
+    moves unchanged."""
+    w_img, h_img = idx_wh.shape
+    ix, iy = _sample_pixel(grid, fl_s, pp, w_img, h_img)
+    packed = torch.stack([idx_wh.reshape(-1),
+                          depth_wh.reshape(-1).view(torch.int32)], dim=-1)
+    out = packed.view(torch.int64)[:, 0][ix * h_img + iy]
+    out = out.unsqueeze(-1).view(torch.int32)  # (H, W, 2)
+    return out[..., 0].t(), out[..., 1].view(torch.float32).t()
 
 
 def triangles(mesh: Ply, **kwargs) -> TrianglesRenderer:

@@ -5,6 +5,8 @@ and the batched pipeline (plan_fuse + fuse_views_planned).
 Ids compare exactly; fused arrays at rtol 1e-5, atol 1e-6 (another
 summation order); depths at rtol 5e-5 (see test_torch_rasterize.py)."""
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -241,6 +243,7 @@ class TestBatchedPipeline:
 
 
 def test_unported_features_raise(tmp_path, cube_scene):
+    """Near-plane clipping raises; a lens (ported) renders JAX's ids."""
     vertices, faces, cams = cube_scene
     mesh = _write_cube(tmp_path, vertices, faces)
     renderer = render.triangles(mesh, device="cpu")
@@ -248,22 +251,38 @@ def test_unported_features_raise(tmp_path, cube_scene):
     lens = data.Camera(cam.rotation, cam.translation, cam.resolution,
                        cam.focal_lengths, cam.principal_point,
                        distortion=[0.01, 0, 0, 0])
-    with pytest.raises(NotImplementedError, match="lens distortion"):
-        renderer.render(lens)
-    with pytest.raises(NotImplementedError, match="lens distortion"):
-        renderer.prepare([cam, lens])
+    jrenderer = semantic_meshes.render.triangles(
+        semantic_meshes.data.Ply(mesh.path))
+    jlens = semantic_meshes.data.Camera(
+        cam.rotation, cam.translation, cam.resolution, cam.focal_lengths,
+        cam.principal_point, distortion=[0.01, 0, 0, 0])
+    ids, depth = renderer.render(lens)
+    jids, jdepth = jrenderer.render(jlens)
+    np.testing.assert_array_equal(
+        ids.view(torch.int32).numpy().view(np.uint32), np.asarray(jids))
+    fin = np.isfinite(np.asarray(jdepth))
+    np.testing.assert_array_equal(np.isfinite(depth.numpy()), fin)
+    np.testing.assert_allclose(depth.numpy()[fin], np.asarray(jdepth)[fin],
+                               rtol=DEPTH_RTOL)
+    renderer.prepare([cam, lens])  # a no-op for the tile rasterizer
     with pytest.raises(NotImplementedError, match="clipping"):
         render.triangles(mesh, clip_near=True, device="cpu")
     # a mesh of DENSE_THRESHOLD faces goes to the dense rasterizer (these
-    # faces are degenerate: nothing is drawn); lens and clipping still raise
+    # faces are degenerate: nothing is drawn, through a lens too, as in
+    # JAX); clipping still raises
     big = convert.ply(mesh)
     big.faces = np.zeros((16384, 3), np.int32)
     dense_renderer = render.triangles(big, device="cpu")
     ids, _ = dense_renderer.render(cam)
     assert bool((ids.view(torch.int32) == -1).all())
     assert dense_renderer.dense_cap_policy._cap[(cam.height, cam.width)]
-    with pytest.raises(NotImplementedError, match="lens distortion"):
-        dense_renderer.render(lens)
+    ids, depth = dense_renderer.render(lens)
+    jbig = semantic_meshes.render.triangles(SimpleNamespace(
+        vertices=big.vertices, faces=big.faces), backend="dense")
+    jids, _ = jbig.render(jlens)
+    np.testing.assert_array_equal(
+        ids.view(torch.int32).numpy().view(np.uint32), np.asarray(jids))
+    assert bool(torch.isinf(depth).all())
     with pytest.raises(NotImplementedError, match="clipping"):
         render.triangles(big, clip_near=True, device="cpu")
     assert render.triangles(big, backend="tile",

@@ -134,7 +134,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 def test_pinhole_only_cameras_pass_the_lens_check():
     cams = testing.make_ring_cameras(2, 64, 32)
-    render.check_pinhole(cams)  # all-zero lens: no error
+    assert not render._has_distortion(cams)  # all-zero lens: pinhole
     assert np.all(cams[0].distortion == 0)
 
 
@@ -150,8 +150,9 @@ def test_dense_kernel_source_and_build_path():
 
 def test_dense_size_meshes_render_while_unported_features_raise(tmp_path):
     """A mesh of DENSE_THRESHOLD faces or more goes to the dense
-    rasterizer (it raised before it was ported); near-plane clipping and
-    lens distortion still raise."""
+    rasterizer (it raised before it was ported), through a lens too (equal
+    to the JAX package's distorted render, its dense path op by op);
+    near-plane clipping still raises."""
     vertices, faces = testing.make_cube(37)  # 16428 faces
     assert len(faces) >= semantic_meshes_torch.rasterize.DENSE_THRESHOLD
     write_mesh(tmp_path / "m.ply", vertices, faces)
@@ -167,5 +168,18 @@ def test_dense_size_meshes_render_while_unported_features_raise(tmp_path):
     lens = data.Camera(cam.rotation, cam.translation, cam.resolution,
                        cam.focal_lengths, cam.principal_point,
                        distortion=np.array([0.1, 0, 0, 0], np.float32))
-    with pytest.raises(NotImplementedError, match="lens distortion"):
-        renderer.render(lens)
+    ids, _ = renderer.render(lens)
+    assert renderer.overflow_total() == 0
+    import jax
+
+    import semantic_meshes
+
+    jlens = semantic_meshes.data.Camera(
+        cam.rotation, cam.translation, cam.resolution, cam.focal_lengths,
+        cam.principal_point, distortion=lens.distortion)
+    with jax.disable_jit():
+        jids, _ = semantic_meshes.render.triangles(
+            semantic_meshes.data.Ply(str(tmp_path / "m.ply")),
+            backend="dense").render(jlens)
+    np.testing.assert_array_equal(
+        ids.view(torch.int32).numpy().view(np.uint32), np.asarray(jids))

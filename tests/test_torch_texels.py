@@ -355,8 +355,11 @@ def test_texels_renderer_takes_a_colmap_workspace(tmp_path, cube_cams,
 
 
 def test_unported_texel_features_raise(tmp_path, cube_cams):
+    """Near-plane clipping raises; a lens (ported) renders, batched or
+    not, the JAX package's distorted texel ids under this file's rule."""
     vertices, faces = testing.make_cube(subdivisions=3)
-    mesh = data.Ply(_mesh(tmp_path, vertices, faces))
+    path = _mesh(tmp_path, vertices, faces)
+    mesh = data.Ply(path)
     with pytest.raises(NotImplementedError, match="clipping"):
         render.texels(mesh, cube_cams, 1.5, clip_near=True, device="cpu")
     renderer = render.texels(mesh, cube_cams, 1.5, bucket=True,
@@ -365,7 +368,26 @@ def test_unported_texel_features_raise(tmp_path, cube_cams):
     lens = data.Camera(cam.rotation, cam.translation, cam.resolution,
                        cam.focal_lengths, cam.principal_point,
                        distortion=[0.01, 0, 0, 0])
-    for call in (renderer.render, lambda c: renderer.render_many([c]),
-                 lambda c: renderer.prepare([cam, c])):
-        with pytest.raises(NotImplementedError, match="lens distortion"):
-            call(lens)
+    renderer.prepare([cam, lens])  # a no-op for the tile rasterizer
+    ids, _ = renderer.render(lens)
+    many, _ = renderer.render_many([lens])
+    assert torch.equal(many[0].view(torch.int32), ids.view(torch.int32))
+    jr = semantic_meshes.render.texels(semantic_meshes.data.Ply(path),
+                                       cube_cams, 1.5)
+    jids, _ = jr.render(convert_lens(lens))
+    P = renderer.getPrimitivesNum()
+    got = ids.view(torch.int32).numpy().T.astype(np.int64)
+    want = np.asarray(jids).T.astype(np.int64)
+    got[got < 0] = P
+    want[want == 0xFFFFFFFF] = P
+    # the triangle under each pixel: the same resample of the triangle ids
+    owner, _ = render.triangles(mesh, device="cpu").render(lens)
+    _, res, first, _ = convert.texel_params(jr)
+    _id_rule(got, want, owner.view(torch.int32).numpy().T, first, res, P)
+
+
+def convert_lens(cam):
+    """The JAX package's camera of a port camera with a lens."""
+    return semantic_meshes.data.Camera(
+        cam.rotation, cam.translation, cam.resolution, cam.focal_lengths,
+        cam.principal_point, distortion=cam.distortion)

@@ -5,6 +5,8 @@ package's fuse_views_texels, on the CPU, with the tile rasterizer (cube
 s=3) and the dense one (cube s=37, JAX op by op). Mirrors
 tests/test_distributed_texels.py."""
 
+from types import SimpleNamespace
+
 import jax
 import numpy as np
 import pytest
@@ -174,11 +176,54 @@ def test_render_and_accumulate_prim_transform_hook(tile_scene):
 
 
 def test_unported_fusion_options_raise(tile_scene):
-    vertices, cams, renderer, _ = tile_scene
+    """Near-plane clipping raises; a lens (ported) fuses as the JAX
+    package's fuse_views_texels does, and a zero lens gives the pinhole
+    fusion's bits."""
+    vertices, cams, renderer, jrenderer = tile_scene
     probs = _probs(len(cams), 2, 1)
     dist = np.zeros((len(cams), 4), np.float32)
-    for kw, match in ((dict(distortions=dist), "lens distortion"),
-                      (dict(shared_lens=True), "lens distortion"),
-                      (dict(clip_near=True), "clipping")):
-        with pytest.raises(NotImplementedError, match=match):
-            _fuse(renderer, vertices, cams, probs, "sum", **kw)
+    plain, _ = _fuse(renderer, vertices, cams, probs, "sum")
+    for kw in (dict(distortions=dist), dict(shared_lens=True),
+               dict(distortions=dist, shared_lens=True)):
+        acc, ov = _fuse(renderer, vertices, cams, probs, "sum", **kw)
+        assert int(ov) == 0 and torch.equal(acc, plain)
+    dist[:, 0] = [0.05, -0.05, 0.02]
+    acc, ov = _fuse(renderer, vertices, cams, probs, "sum", distortions=dist)
+    jacc, _ = _jax_fuse(jrenderer, cams, probs, "sum", distortions=dist)
+    assert int(ov) == 0 and not torch.equal(acc, plain)
+    np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), rtol=RTOL,
+                               atol=ATOL)
+    with pytest.raises(NotImplementedError, match="clipping"):
+        _fuse(renderer, vertices, cams, probs, "sum", clip_near=True)
+
+
+def test_forced_dense_texel_plan_equals_per_view(tile_scene, monkeypatch):
+    """A texel plan forced dense on a mesh under DENSE_THRESHOLD faces
+    (cube s=3): fuse_views_texels(backend="dense") rasterizes with the
+    dense rasterizer, once per view, and equals the per-view
+    TexelsRenderer(backend="dense") -> add path bit for bit."""
+    vertices, cams, renderer, _ = tile_scene
+    assert len(renderer.faces) < render.rast.DENSE_THRESHOLD
+    probs = _probs(len(cams), 3, 9)
+    plan = distributed.plan_fuse(vertices, renderer.faces,
+                                 *stack_cameras(cams), height=96, width=128,
+                                 backend="dense", allow_split=False,
+                                 device="cpu")
+    assert plan.dense_e_cap is not None
+    calls = []
+    dense_rasterize = render.rast.dense.rasterize
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return dense_rasterize(*args, **kwargs)
+
+    monkeypatch.setattr(render.rast.dense, "rasterize", counted)
+    acc, overflow = _fuse(renderer, vertices, cams, probs, "sum",
+                          backend="dense", dense_e_cap=plan.dense_e_cap)
+    assert int(overflow) == 0 and len(calls) == len(cams)
+    faces = testing.make_cube(subdivisions=3)[1]
+    dense = render.texels(SimpleNamespace(vertices=vertices, faces=faces),
+                          cams, 1.5, backend="dense", device="cpu")
+    want = _per_view(dense, cams, probs, "sum")
+    assert len(calls) == 2 * len(cams)
+    assert torch.equal(acc, want)
