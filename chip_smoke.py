@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--against DIR ...]
 
-Drives the port's main paths through their public entry points, at five
-of bench.py's presets (random probabilities from a seed, made on the
-card), in phases; each phase prints a line and raises on failure:
+Drives the port's main paths through their public entry points, at six
+of bench.py's presets, their distorted variants and their indoor
+variants (random probabilities from a seed, made on the card), in phases;
+each phase prints a line and raises on failure:
 
 1. the card's name and power limit (nvidia-smi);
 2. build of both CUDA kernels from csrc/ (one nvcc per source, all
@@ -18,7 +19,11 @@ card), in phases; each phase prints a line and raises on failure:
    dense rasterizer (ids equal, depths bit-equal, overflow 0), at the
    budgets the main path probes, on the hand-binned scenes of
    testing.DENSE_SCENES, and on every view of `texels` (its reordered
-   faces, its probed budget);
+   faces, its probed budget); on clipped piece rows (clip_near=True):
+   both kernels (raster_dense forced) on tests/test_clipping.py's random
+   straddling scene at 1296x968, raster_tile on every view of `large`
+   indoor and raster_dense on every view of `scannet` indoor (twice,
+   bit-identical);
 4. the main paths, each with every launch counter set to 0 just before it
    and read just after:
    - `large` (cube s=16, 3072 triangles, 8 views of 2048x1536, 19
@@ -65,6 +70,19 @@ card), in phases; each phase prints a line and raises on failure:
      on the card against the CPU at full size (one view per lens: the
      classic wire bit for bit, the extended wire's differences, and its
      ids after the resample on at most 1e-4 of the pixels);
+   - near-plane clipping (bench.py has no indoor preset; ROOM_SIZE and
+     INDOOR_RING below move a preset's cameras inside its cube, nothing
+     cut): `scannet` indoor (kernel B) and `large` indoor (kernel A) with
+     clip_near=True: prepare -> render -> render_many -> MeshAggregator
+     sum/summax/mul -> get -> PLY, plan_fuse(clip_near=True) with split_k
+     0 and no remap, fuse_views_planned twice == per-view,
+     bit-identical, fuse_views_split == fuse_views, overflow 0, every
+     pixel covered, the kernel once per view rasterized with pairs;
+     `texels01` indoor: the card's clipped texel sizing == the CPU's on
+     every face, the same chain in texel mode, fuse_views_texels ==
+     per-view, every id < P, the card's ray-form shader == the CPU's bit
+     for bit on every view; `scannet` indoor + SIMPLE_RADIAL: render_many
+     == render, clipped under the virtual focal;
 5. times with CUDA events (medians after warm-up): each kernel's time
    per view both as `ms`, from replays of a CUDA graph of its launches
    (the device's own time), and as `launched_ms`, with Python launching
@@ -84,9 +102,12 @@ card), in phases; each phase prints a line and raises on failure:
    _resample_wh launched and in graph replays with its byte bound) and
    one batch (timed in phase 4 where the lenses are extended) and one
    traced batch of each distorted variant, and
-   `scannet` + SIMPLE_RADIAL against `scannet` in turns. The kernel
-   line's `launches` counts `large` and `scannet`; `launches_by_path`
-   every path's run.
+   `scannet` + SIMPLE_RADIAL against `scannet` in turns; one batch and
+   one traced batch per indoor variant, the clipped `scannet` indoor
+   batch against the culled one of the same cameras in turns, and the
+   clipper and the clipped setup per view (launched and in graph
+   replays) against the culled setup. The kernel line's `launches`
+   counts `large` and `scannet`; `launches_by_path` every path's run.
 
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
@@ -142,6 +163,14 @@ RADIAL_SCANNET = (-0.1, 0.0, 0.0, 0.0)
 RADIAL_LARGE = (0.1, 0.0, 0.0, 0.0)
 FISHEYE = (0.03, -0.011, 0.002, -0.0005, 0.0, 0.0, 0.0, 0.0, 1.0)
 LARGE_LENSES = [FISHEYE] * 4 + [None] * 2 + [RADIAL_LARGE] * 2
+# indoor variants (bench.py has none): a preset's mesh, views and classes
+# with the cameras moved inside, rendered with clip_near=True, nothing cut:
+# the cube at ROOM_SIZE (a 4 m room; `scannet`'s s=91 gives 4.4 cm
+# triangles), the views on a ring of radius 0.8 m at eye height 1.5 m above
+# the floor (0.625 x the radius below the room's centre), looking at
+# (0, -0.9, 0), at the preset's focal (0.9 x height)
+ROOM_SIZE = 4.0
+INDOOR_RING = dict(radius=0.8, elevation=-0.625, target=(0.0, -0.9, 0.0))
 # H100 SXM peaks (NVIDIA data sheet): non-tensor fp32 and HBM3 bandwidth.
 # The 67 TFLOP/s counts an FMA as two operations; the kernels round every
 # multiply and add on its own (-fmad=false), one per lane and clock, so
@@ -207,38 +236,39 @@ def cam_args(cam):
             cam.principal_point)
 
 
-def view_inputs(fv, cam, device):
+def view_inputs(fv, cam, device, clip_near=False):
     """Setup + binning of one view for the tile kernel from device face
     vertices `fv`, as the renderer runs it: (resolve_tiles arguments,
-    overflow)."""
+    overflow). clip_near: of the 2T clipped piece rows."""
     from semantic_meshes_torch.rasterize import tile_kernel
 
     return tile_kernel.resolve_inputs(None, None, *cam_args(cam),
-                                      face_vertices=fv, device=device,
-                                      **cam_kw(cam))
+                                      face_vertices=fv, clip_near=clip_near,
+                                      device=device, **cam_kw(cam))
 
 
-def dense_budget(vertices, faces, cams, device, backend=None):
+def dense_budget(vertices, faces, cams, device, backend=None,
+                 clip_near=False):
     """The dense budget tuple the renderer probes for this camera set."""
     import semantic_meshes_torch as smt
     from types import SimpleNamespace
 
     r = smt.render.TrianglesRenderer(
         SimpleNamespace(vertices=vertices, faces=faces), backend=backend,
-        device=device)
+        clip_near=clip_near, device=device)
     r.prepare(cams)
     return r.dense_cap_policy._cap[(cams[0].resolution[1],
                                     cams[0].resolution[0])]
 
 
-def dense_view_inputs(fv, cam, cap, device):
+def dense_view_inputs(fv, cam, cap, device, clip_near=False):
     """Everything of one dense view before the kernel, at budget `cap`:
     (resolve_dense arguments, micro key, overflow)."""
     from semantic_meshes_torch import rasterize as rast
 
     return rast.dense.resolve_inputs(None, None, *cam_args(cam),
-                                     face_vertices=fv, device=device,
-                                     **cam_kw(cam),
+                                     face_vertices=fv, clip_near=clip_near,
+                                     device=device, **cam_kw(cam),
                                      **rast.dense_kwargs(cap))
 
 
@@ -474,9 +504,11 @@ def fuse_and_save(name, mesh, rendered, probs, classes, workdir, device,
     return fused
 
 
-def planned_twice(name, plan, vertices, cams, probs, classes, device, **kw):
+def planned_twice(name, plan, vertices, cams, probs, classes, device,
+                  overflow=0, **kw):
     """Two fuse_views_planned batches (keywords `kw` passed on); both
-    overflow 0 and bit-identical."""
+    bit-identical, each with `overflow` dropped (0, or the big rows past
+    the global bucket's cap: global_drops)."""
     import semantic_meshes_torch as smt
 
     width, height = cams[0].resolution
@@ -487,9 +519,9 @@ def planned_twice(name, plan, vertices, cams, probs, classes, device, **kw):
             plan, vertices, rot, trans, fl, pp, probs, IEW,
             num_primitives=len(plan.faces), aggregator="sum", height=height,
             width=width, device=device, **kw)
-        if int(ov) != 0:
+        if int(ov) != overflow:
             raise AssertionError(f"{name}: fuse_views_planned overflow "
-                                 f"{int(ov)}")
+                                 f"{int(ov)}, expected {overflow}")
         runs.append(acc)
     if not torch.equal(runs[0], runs[1]):
         raise AssertionError(f"{name}: repeated fusion is not bit-identical")
@@ -1174,6 +1206,456 @@ def lens_times(large_ctx, scannet_ctx, device, card):
     )
 
 
+def indoor_scene(name):
+    """Preset `name`'s mesh, views and classes with the cameras moved
+    inside: the cube at ROOM_SIZE and the views on INDOOR_RING."""
+    from semantic_meshes_torch import testing
+
+    sub, views, width, height, _ = SCENES[name]
+    vertices, faces = testing.make_cube(subdivisions=sub, size=ROOM_SIZE)
+    cams = testing.make_ring_cameras(num_views=views, width=width,
+                                     height=height, **INDOOR_RING)
+    return vertices, faces, cams
+
+
+def straddle_scene():
+    """tests/test_clipping.py's random straddling scene at `scannet`'s
+    1296x968: 40 vertices N(0, 1) x 2 and 30 faces from seed 8, many
+    across the camera plane; the camera at the origin looking down +z,
+    focal 0.9 x 968, centred."""
+    from semantic_meshes_torch import data
+
+    rng = np.random.default_rng(8)
+    vertices = rng.normal(size=(40, 3)).astype(np.float32) * 2
+    faces = rng.integers(0, 40, size=(30, 3)).astype(np.int32)
+    cam = data.Camera(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+                      (1296, 968), np.full(2, 0.9 * 968, np.float32),
+                      np.array([648.0, 484.0], np.float32))
+    return vertices, faces, cam
+
+
+def global_drops(vertices, faces, cams, device, lenses=None):
+    """Per view, the big rows of the clipped setup past dense.N_GLOBAL:
+    the rows the reference's capped global bucket drops and counts in
+    overflow (a limit of its design, PERF.md), from the classification
+    alone, independent of the kernel. lenses: per-view lens wires; the
+    setup then runs under the virtual focal, as the render does."""
+    from semantic_meshes_torch import render
+    from semantic_meshes_torch.rasterize import dense, tiles
+
+    fv = face_vertices(vertices, faces, device)
+    out = []
+    for k, cam in enumerate(cams):
+        fl = torch.as_tensor(cam.focal_lengths, device=device)
+        if lenses is not None:
+            fl = fl * render._undistort_grid(
+                fl, torch.as_tensor(cam.principal_point, device=device),
+                torch.as_tensor(np.asarray(lenses[k], np.float32),
+                                device=device),
+                height=cam.height, width=cam.width)[1]
+        setup = tiles.setup_inputs(None, None, cam.rotation, cam.translation,
+                                   fl, cam.principal_point, face_vertices=fv,
+                                   device=device, clip_near=True)
+        big = dense._classify(setup, cam.height, cam.width, 0.0)[2]
+        out.append(max(int(big.sum()) - dense.N_GLOBAL, 0))
+    return out
+
+
+def check_coverage(label, ids, drops):
+    """Every pixel of every view without global-bucket drops is covered (a
+    closed room); returns the coverage per view (W, H) id images."""
+    cov = [float((i.view(torch.int32) >= 0).double().mean()) for i in ids]
+    for k, (c, d) in enumerate(zip(cov, drops)):
+        if d == 0 and c != 1.0:
+            raise AssertionError(f"{label} view {k}: coverage {c} in a "
+                                 "closed room")
+    return cov
+
+
+def clipped_vs_plain(device):
+    """Phase 3 on the 2T clipped piece rows (pieces pinned at z = 1e-4
+    project up to ~1e4 x the focal, so edge constants reach ~1e13): both
+    kernels (raster_dense forced) on the straddling scene, raster_tile on
+    every view of `large` indoor, raster_dense on every view of `scannet`
+    indoor at the budget its clipped renderer probes (twice per view,
+    bit-identical). Returns the largest |depth difference|."""
+    from semantic_meshes_torch.rasterize import dense_kernel, tile_kernel
+
+    max_err = 0.0
+    vertices, faces, cam = straddle_scene()
+    fv = face_vertices(vertices, faces, device)
+    args, ov_t = view_inputs(fv, cam, device, clip_near=True)
+    zk, ik = tile_kernel.resolve_tiles_cuda(*args)
+    zp, ip = tile_kernel.resolve_tiles_plain(*args)
+    dargs, _, ov_d = dense_view_inputs(fv, cam, None, device, clip_near=True)
+    zd, idd = dense_kernel.resolve_dense_cuda(*dargs)
+    zdp, idp = dense_kernel.resolve_dense_plain(*dargs)
+    torch.cuda.synchronize()
+    max_err = max(max_err, assert_same_image("straddle tile", 0, zk, ik, zp,
+                                             ip),
+                  assert_same_image("straddle dense", 0, zd, idd, zdp, idp))
+    if not torch.equal(ik, idd) or int(ov_t) or int(ov_d):
+        raise AssertionError("straddle: raster_tile and raster_dense differ "
+                             f"(overflow {int(ov_t)}, {int(ov_d)})")
+    phase(f"phase 3: raster_tile and raster_dense (forced) == plain on the "
+          f"straddling scene ({len(faces)} faces, {args[0].shape[0] - 1} "
+          f"piece rows, {cam.width}x{cam.height}, coverage "
+          f"{float((ik >= 0).float().mean()):.6f}): ids equal, depths "
+          "bit-equal, the two kernels' piece ids equal, overflow 0")
+
+    vertices, faces, cams = indoor_scene("large")
+    fv = face_vertices(vertices, faces, device)
+    for k, cam in enumerate(cams):
+        args, overflow = view_inputs(fv, cam, device, clip_near=True)
+        zk, ik = tile_kernel.resolve_tiles_cuda(*args)
+        zp, ip = tile_kernel.resolve_tiles_plain(*args)
+        torch.cuda.synchronize()
+        if int(overflow):
+            raise AssertionError(f"large indoor view {k}: overflow")
+        max_err = max(max_err, assert_same_image("large indoor", k, zk, ik,
+                                                 zp, ip))
+    phase(f"phase 3: raster_tile == plain at large indoor + clip: "
+          f"{len(cams)} views, {2 * len(faces)} piece rows, ids equal, "
+          "depths bit-equal, overflow 0")
+
+    vertices, faces, cams = indoor_scene("scannet")
+    fv = face_vertices(vertices, faces, device)
+    cap = dense_budget(vertices, faces, cams, device, clip_near=True)
+    drops = global_drops(vertices, faces, cams, device)
+    shapes = []
+    for k, cam in enumerate(cams):
+        args, _, overflow = dense_view_inputs(fv, cam, cap, device,
+                                              clip_near=True)
+        if args is None:
+            raise AssertionError(f"scannet indoor: zero pair budget {cap}")
+        zk, ik = dense_kernel.resolve_dense_cuda(*args)
+        z2, i2 = dense_kernel.resolve_dense_cuda(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        torch.cuda.synchronize()
+        if not (torch.equal(i2, ik) and torch.equal(z2.view(torch.int32),
+                                                    zk.view(torch.int32))):
+            raise AssertionError(f"scannet indoor view {k}: two runs of "
+                                 "raster_dense differ")
+        if int(overflow) != drops[k]:
+            raise AssertionError(f"scannet indoor view {k}: overflow "
+                                 f"{int(overflow)}, expected {drops[k]}")
+        max_err = max(max_err, assert_same_image("scannet indoor", k, zk, ik,
+                                                 zp, ip))
+        starts = args[2].long()
+        B = starts.numel() - 2
+        shapes.append((int(starts[B + 1] - starts[B]),
+                       int((starts[1:B + 1] - starts[:B]).max())))
+    phase(f"phase 3: raster_dense == plain at scannet indoor + clip (budget "
+          f"{cap}, {2 * len(faces)} piece rows): {len(cams)} views, ids "
+          f"equal, depths bit-equal, two runs per view bit-identical, "
+          f"overflow per view == big rows past n_global {drops}; (global "
+          f"bucket, heaviest own range) per view {shapes}")
+    return max_err
+
+
+def indoor_main_path(name, device, workdir):
+    """Phase 4 at `scannet` or `large` indoor, clip_near=True, through the
+    public API, launch counters read around it: prepare -> render ->
+    render_many -> MeshAggregator sum/summax/mul -> get -> colours -> PLY;
+    plan_fuse(clip_near=True) compacts (split_k 0, remap None);
+    fuse_views_planned twice, bit-identical, == per-view; fuse_views_split
+    == fuse_views; overflow == the big rows past n_global (global_drops;
+    0 for the tile rasterizer); every pixel covered in each view without
+    such drops (a closed room); the kernel once per view rasterized with
+    pairs. Returns what phase 5 reuses, with the same cameras' culled
+    batch."""
+    import semantic_meshes_torch as smt
+
+    sub, n_views, width, height, classes = SCENES[name]
+    label = f"{name} indoor + clip"
+    vertices, faces, cams = indoor_scene(name)
+    path = os.path.join(workdir, f"{name}_indoor.ply")
+    smt.io.ply.write_mesh(path, vertices, faces)
+    mesh = smt.data.Ply(path)
+    probs = device_probs(n_views, height, width, classes, device)
+    rot, trans, fl, pp = smt.data.stack_cameras(cams)
+    dense = smt.rasterize.uses_dense(None, len(faces))
+    kw = dict(num_primitives=len(faces), aggregator="sum", height=height,
+              width=width, clip_near=True, device=device)
+    drops = (global_drops(vertices, faces, cams, device) if dense
+             else [0] * n_views)
+    total = sum(drops)
+
+    reset_launches()
+    renderer = smt.render.triangles(mesh, clip_near=True, device=device)
+    renderer.prepare(cams)
+    cap = renderer.dense_cap_policy._cap.get((height, width))
+    rendered = [renderer.render(cam)[0] for cam in cams]
+    many, _ = renderer.render_many(cams)
+    if not torch.equal(many, torch.stack(rendered)):
+        raise AssertionError(f"{label}: render_many != render")
+    if renderer.overflow_total() != 2 * total:
+        raise AssertionError(f"{label}: render overflow "
+                             f"{renderer.overflow_total()}, expected "
+                             f"{2 * total}")
+    coverage = check_coverage(label, many, drops)
+    fused_sum = fuse_and_save(f"{name}_indoor", mesh, rendered, probs,
+                              classes, workdir, device)
+    plan = smt.distributed.plan_fuse(vertices, faces, rot, trans, fl, pp,
+                                     height=height, width=width,
+                                     clip_near=True, device=device)
+    if plan.split_k != 0 or plan.remap is not None:
+        raise AssertionError(f"{label}: plan split_k {plan.split_k}")
+    acc = planned_twice(label, plan, vertices, cams, probs, classes, device,
+                        overflow=total, clip_near=True)
+    unplanned, ov = smt.distributed.fuse_views(vertices, faces, rot, trans,
+                                               fl, pp, probs, IEW, **kw)
+    split, ov_s = smt.distributed.fuse_views_split(vertices, faces, rot,
+                                                   trans, fl, pp, probs, IEW,
+                                                   **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if int(ov) != total or int(ov_s) != total or not torch.equal(
+            split, unplanned):
+        raise AssertionError(f"{label}: fuse_views_split != fuse_views "
+                             f"(overflow {int(ov)}, {int(ov_s)})")
+    # render, render_many, two planned batches, fuse_views (default
+    # budgets: always binned), fuse_views_split (the plan's budgets)
+    caps = ([cap] * (2 * n_views) + [plan.dense_e_cap] * (2 * n_views)
+            + [None] * n_views + [plan.dense_e_cap] * n_views)
+    kernel = "raster_dense" if dense else "raster_tile"
+    expect_launches(label, launches, kernel, sum(
+        1 for c in caps if not dense or c is None or c[0] > 0))
+    bit = same_state(label, acc, fused_sum)
+    if not torch.equal(unplanned, acc):
+        raise AssertionError(f"{label}: fuse_views != fuse_views_planned")
+    extra = (f"dense budget {cap} (render), plan {plan.dense_e_cap}"
+             if dense else "tile rasterizer")
+    phase(
+        f"phase 4: {label} ok: {n_views} views {width}x{height} inside a "
+        f"{ROOM_SIZE} m room, {len(faces)} triangles, {classes} classes, "
+        f"{extra}, split_k {plan.split_k}; prepare + render + render_many, "
+        f"coverage per view {coverage}, sum/summax/mul fused, PLY saved and "
+        f"reloaded, overflow per batch {total} == the big rows past n_global "
+        f"per view {drops}, launches {launches}, planned == per-view "
+        f"(bit-equal: {bit}), repeated fusion bit-identical, "
+        "fuse_views_split == fuse_views == planned"
+    )
+
+    def batch():
+        return smt.distributed.fuse_views_planned(
+            plan, vertices, rot, trans, fl, pp, probs, IEW, **kw)
+
+    cull_plan = smt.distributed.plan_fuse(vertices, faces, rot, trans, fl,
+                                          pp, height=height, width=width,
+                                          device=device)
+
+    def cull_batch():
+        return smt.distributed.fuse_views_planned(
+            cull_plan, vertices, rot, trans, fl, pp, probs, IEW,
+            **dict(kw, clip_near=False))
+
+    return dict(faces=faces, vertices=vertices, cams=cams, probs=probs,
+                plan=plan, batch=batch, cull_batch=cull_batch,
+                entry="fuse_views_planned", launches=launches, cap=cap,
+                drops=drops)
+
+
+def indoor_texels01(device):
+    """Phase 4 at `texels01` indoor (`scannet` indoor's mesh, views and
+    classes at 0.1 texels per pixel, clip_near=True): the clipped
+    _texel_resolutions on the card == the CPU's on every face; texels ->
+    prepare -> render -> render_many -> MeshAggregator sum/summax/mul ->
+    get -> colours; fuse_views_texels(clip_near=True) under
+    plan_fuse(allow_split=False, clip_near=True) twice, bit-identical,
+    == per-view; every id < P; overflow == the big rows past n_global
+    (global_drops); the card's ray-form shader ==
+    the CPU's bit for bit on every view, from the card's triangle ids;
+    raster_dense once per view rasterized with pairs."""
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch import render
+
+    sub, n_views, width, height, classes = SCENES["texels01"]
+    label = "texels01 indoor + clip"
+    tpp = TPP["texels01"]
+    vertices, faces, cams = indoor_scene("texels01")
+    sizes = []
+    for d in (device, torch.device("cpu")):
+        v = torch.as_tensor(vertices, device=d)
+        f = torch.as_tensor(faces.astype(np.int64), device=d)
+        sizes.append(render._texel_resolutions(v, f, cams, tpp,
+                                               clip_near=True).cpu())
+    resized = int((sizes[0] != sizes[1]).sum())
+    if resized:
+        raise AssertionError(f"{label}: the card's clipped sizing differs "
+                             f"from the CPU's on {resized} faces")
+    mesh = SimpleNamespace(vertices=vertices, faces=faces)
+    probs = device_probs(n_views, height, width, classes, device)
+    rot, trans, fl, pp = smt.data.stack_cameras(cams)
+    drops = global_drops(vertices, faces, cams, device)
+    total = sum(drops)
+
+    reset_launches()
+    renderer = smt.render.texels(mesh, cams, tpp, clip_near=True,
+                                 device=device)
+    P = renderer.getPrimitivesNum()
+    if not torch.equal(renderer.resolutions.cpu(), sizes[1]):
+        raise AssertionError(f"{label}: renderer sizing != the CPU's")
+    renderer.prepare(cams)
+    cap = renderer.dense_cap_policy._cap[(height, width)]
+    rendered = [renderer.render(cam)[0] for cam in cams]
+    many, _ = renderer.render_many(cams)
+    if not torch.equal(many, torch.stack(rendered)):
+        raise AssertionError(f"{label}: render_many != render")
+    if renderer.overflow_total() != 2 * total:
+        raise AssertionError(f"{label}: render overflow "
+                             f"{renderer.overflow_total()}, expected "
+                             f"{2 * total}")
+    fused_sum = fuse_and_save(label, mesh, rendered, probs, classes, None,
+                              device, texels=P)
+    plan = smt.distributed.plan_fuse(
+        renderer.vertices, renderer.faces, rot, trans, fl, pp, height=height,
+        width=width, allow_split=False, clip_near=True, device=device)
+
+    def batch():
+        return smt.distributed.fuse_views_texels(
+            renderer.vertices, plan.faces, renderer.resolutions,
+            renderer.first_texel_index, rot, trans, fl, pp, probs, IEW,
+            num_primitives=P, aggregator="sum", height=height, width=width,
+            clip_near=True, dense_e_cap=plan.dense_e_cap, device=device)
+
+    runs = []
+    for _ in range(2):
+        acc, ov = batch()
+        if int(ov) != total:
+            raise AssertionError(f"{label}: fuse_views_texels overflow "
+                                 f"{int(ov)}, expected {total}")
+        runs.append(acc)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError(f"{label}: repeated fusion is not "
+                             "bit-identical")
+    caps = [cap] * (2 * n_views) + [plan.dense_e_cap] * (2 * n_views)
+    expect_launches(label, launches, "raster_dense",
+                    sum(1 for c in caps if c[0] > 0))
+    bit = same_state(label, runs[0], fused_sum)
+    ids = many.view(torch.int32)
+    if int(ids.max()) >= P:
+        raise AssertionError(f"{label}: texel ids out of [0, {P})")
+    tables = (renderer.vertices, renderer.faces, renderer.resolutions,
+              renderer.first_texel_index)
+    cpu_tables = [t.cpu() for t in tables]
+    for k, cam in enumerate(cams):
+        tri = smt.rasterize.rasterize(
+            renderer.vertices, renderer.faces, *cam_args(cam),
+            face_vertices=renderer.face_vertices, height=height, width=width,
+            clip_near=True, dense_e_cap=cap, device=device)[0]
+        card = render._texel_prim_image(*tables[:2], *cam_args(cam), tri,
+                                        *tables[2:], P, clip_near=True)
+        cpu = render._texel_prim_image(*cpu_tables[:2], *cam_args(cam),
+                                       tri.cpu(), *cpu_tables[2:], P,
+                                       clip_near=True)
+        if not torch.equal(card.cpu(), cpu):
+            raise AssertionError(f"{label} view {k}: the card's ray-form "
+                                 f"shader differs from the CPU's on "
+                                 f"{int((card.cpu() != cpu).sum())} pixels")
+    r = renderer.resolutions
+    cull = render._texel_resolutions(
+        torch.as_tensor(vertices, device=device),
+        torch.as_tensor(faces.astype(np.int64), device=device), cams, tpp)
+    phase(
+        f"phase 4: {label} ok: {n_views} views {width}x{height}, "
+        f"{len(faces)} triangles, tpp {tpp}, P {P} texels (culled sizing "
+        f"{int(smt.geometry.texel_count(cull.long()).sum())}; resolution "
+        f"{int(r.min())}-{int(r.max())}, {int((r == 0).sum())} triangles "
+        f"without texels, {int((r > 0).sum() - (cull > 0).sum())} more "
+        f"sized than by the culled rule), the card's clipped sizing == the "
+        f"CPU's on every face; dense budget {cap} (render), plan "
+        f"{plan.dense_e_cap}; prepare + render + render_many, sum/summax/mul "
+        f"fused, texel coverage {float((ids >= 0).double().mean())}, every "
+        f"id < P, overflow per batch {total} == the big rows past n_global "
+        f"{drops}, launches {launches}, the card's ray-form "
+        f"shader == the CPU's on every view, fuse_views_texels == per-view "
+        f"(bit-equal: {bit}), repeated fusion bit-identical"
+    )
+    return dict(faces=faces, primitives=P, probs=probs, plan=plan,
+                batch=batch, entry="fuse_views_texels", launches=launches)
+
+
+def indoor_scannet_lens(device):
+    """Phase 4 at `scannet` indoor + SIMPLE_RADIAL k1 = RADIAL_SCANNET[0]
+    on all views (clip_near=True, kernel B): render_many == per-view
+    render, clipped under the virtual focal; overflow == the big rows
+    past n_global under that focal (global_drops); raster_dense once per
+    view rendered with pairs."""
+    import semantic_meshes_torch as smt
+
+    label = "scannet indoor + clip + SIMPLE_RADIAL"
+    vertices, faces, pinholes = indoor_scene("scannet")
+    cams = with_lenses(pinholes, [RADIAL_SCANNET] * len(pinholes))
+    drops = global_drops(vertices, faces, cams, device,
+                         [RADIAL_SCANNET] * len(cams))
+    reset_launches()
+    renderer = smt.render.triangles(
+        SimpleNamespace(vertices=vertices, faces=faces), clip_near=True,
+        device=device)
+    renderer.prepare(cams)
+    cap = renderer.dense_cap_policy._cap[cams[0].height, cams[0].width]
+    rendered = [renderer.render(cam)[0] for cam in cams]
+    many, _ = renderer.render_many(cams)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if not torch.equal(many, torch.stack(rendered)):
+        raise AssertionError(f"{label}: render_many != render")
+    if renderer.overflow_total() != 2 * sum(drops):
+        raise AssertionError(f"{label}: overflow {renderer.overflow_total()}"
+                             f", expected {2 * sum(drops)}")
+    expect_launches(label, launches, "raster_dense",
+                    2 * len(cams) if cap[0] > 0 else 0)
+    coverage = [float((i.view(torch.int32) >= 0).double().mean())
+                for i in many]
+    phase(f"phase 4: {label} ok: {len(cams)} views, dense budget {cap} "
+          f"under the virtual focal; render_many == render, coverage per "
+          f"view {coverage}, overflow per batch {sum(drops)} == the big rows "
+          f"past n_global {drops}, launches {launches}")
+    return dict(launches=launches)
+
+
+def clip_times(ctx, device, card):
+    """Phase 5 at `scannet` indoor, per view: the near-plane clipper
+    (geometry.clip_triangles_near) and the whole clipped setup
+    (tiles.setup_clipped: rigid transform, clipper, projection, setup of
+    the 2T rows) against the culled setup of the same cameras, each
+    launched from Python and in CUDA-graph replays."""
+    from semantic_meshes_torch import geometry
+    from semantic_meshes_torch.rasterize import tiles
+
+    cams, faces = ctx["cams"], ctx["faces"]
+    fv = face_vertices(ctx["vertices"], faces, device)
+    cam_t = [tuple(torch.as_tensor(np.asarray(a, np.float32), device=device)
+                   for a in cam_args(c)) for c in cams]
+    n = len(cams)
+
+    def clipper():
+        return [geometry.clip_triangles_near(
+            geometry.rigid_transform(r, t, fv), tiles.CLIP_Z_NEAR)
+            for r, t, _, _ in cam_t]
+
+    def clipped():
+        return [tiles.setup_clipped(fv, *c) for c in cam_t]
+
+    def culled():
+        return [tiles.setup_from_face_vertices(fv, *c) for c in cam_t]
+
+    out = {}
+    for label, fn in (("clipper", clipper), ("clipped setup", clipped),
+                      ("culled setup", culled)):
+        out[label] = (cuda_time_ms(fn, reps=10) / n,
+                      graph_time_ms(fn, reps=10) / n)
+    phase(
+        f"phase 5 [{card}]: scannet indoor + clip ({n} views, {len(faces)} "
+        f"faces), per view launched / in graph replays: "
+        + "; ".join(f"{k} {a:.6f} / {b:.6f} ms" for k, (a, b) in out.items())
+    )
+    return out
+
+
 def bound(ops, nbytes, ops_per_s=PEAK_FP32_OPS):
     ops_ms = ops / ops_per_s * 1e3
     bytes_ms = nbytes / PEAK_BYTES_S * 1e3
@@ -1256,19 +1738,21 @@ def rect_meets(args):
     return int(meets.sum()), int(meets.sum(1).max())
 
 
-def tile_times(name, device, card, against):
-    """raster_tile and its plain version at scene `name`: ms per view (the
-    kernel's in turns with each --against copy's, by in_turns, on the
-    view, on its heaviest tile alone and with every tile empty; the plain
-    version's by CUDA events around all views back to back), with the
-    bound of one view's work computed from this run's inputs."""
+def tile_times(name, device, card, against, clip=False):
+    """raster_tile and its plain version at scene `name` (clip: its indoor
+    variant, clipped): ms per view (the kernel's in turns with each
+    --against copy's, by in_turns, on the view, on its heaviest tile alone
+    and with every tile empty; the plain version's by CUDA events around
+    all views back to back), with the bound of one view's work computed
+    from this run's inputs."""
     from semantic_meshes_torch.rasterize import tile_kernel
 
-    vertices, faces, cams = scene(name)
+    vertices, faces, cams = (indoor_scene if clip else scene)(name)
     n_views = len(cams)
     width, height = cams[0].resolution
     fv = face_vertices(vertices, faces, device)
-    inputs = [view_inputs(fv, cam, device)[0] for cam in cams]
+    inputs = [view_inputs(fv, cam, device, clip_near=clip)[0]
+              for cam in cams]
     sum_counts = [int(a[2].sum()) for a in inputs]
     max_counts = [int(a[2].max()) for a in inputs]
     meets = [rect_meets(a) for a in inputs]
@@ -1313,7 +1797,8 @@ def tile_times(name, device, card, against):
     mean_counts = statistics.mean(sum_counts)
     every_ms = bound(mean_counts * tile_pixels * FLOPS_PER_TEST, nbytes)[0]
     phase(
-        f"phase 5 [{card}]: {name} ({n_views} views {width}x{height}), per "
+        f"phase 5 [{card}]: {name}{' indoor + clip' if clip else ''} "
+        f"({n_views} views {width}x{height}), per "
         f"view: raster_tile {times['ms']:.6f} ms (graph replays), "
         f"{times['launched_ms']:.6f} ms launched view by view; turns "
         f"{turns}; heaviest tile alone {heaviest_ms:.6f} ms (turns "
@@ -1783,6 +2268,8 @@ def main():
 
     tile_err = tile_vs_plain(device)
     dense_err = max(dense_vs_plain(device), texel_dense_vs_plain(device))
+    clip_err = clipped_vs_plain(device)
+    tile_err, dense_err = max(tile_err, clip_err), max(dense_err, clip_err)
 
     with tempfile.TemporaryDirectory() as workdir:
         large = main_path("large", device, workdir)
@@ -1796,6 +2283,11 @@ def main():
     large_lens = distorted_large(device)
     texel_lens = distorted_texels(device)
     grid_card_vs_cpu(device, card)
+    with tempfile.TemporaryDirectory() as workdir:
+        indoor = {name: indoor_main_path(name, device, workdir)
+                  for name in ("scannet", "large")}
+    indoor["texels01"] = indoor_texels01(device)
+    indoor_lens = indoor_scannet_lens(device)
 
     tile_times("default", device, card, against)
     tile_row = tile_times("large", device, card, against)
@@ -1823,6 +2315,11 @@ def main():
         texel_lens["tile"]["launches"]["raster_tile"]
     by_path["raster_dense"]["default texels + lenses, forced dense"] = \
         texel_lens["dense"]["launches"]["raster_dense"]
+    for name, ctx in indoor.items():
+        kernel = "raster_tile" if name == "large" else "raster_dense"
+        by_path[kernel][f"{name} indoor + clip"] = ctx["launches"][kernel]
+    by_path["raster_dense"]["scannet indoor + clip + SIMPLE_RADIAL"] = \
+        indoor_lens["launches"]["raster_dense"]
     del large, scannet
     batch_throughput("dense", dense_ctx, device, card)
     del dense_ctx
@@ -1839,6 +2336,27 @@ def main():
     batch_throughput("default", texel_lens["tile"], device, card,
                      "default texels + lenses")
     del scannet_lens, large_lens, texel_lens
+    for name, ctx in indoor.items():
+        batch_throughput(name, ctx, device, card, f"{name} indoor + clip")
+    batches_in_turns("scannet indoor, culled", indoor["scannet"]["cull_batch"],
+                     "scannet indoor + clip", indoor["scannet"]["batch"],
+                     card)
+    clip_times(indoor["scannet"], device, card)
+    tile_indoor = tile_times("large", device, card, against, clip=True)
+    ctx = indoor["scannet"]
+    fv = face_vertices(ctx["vertices"], ctx["faces"], device)
+    dense_indoor = dense_kernel_row(
+        "scannet indoor + clip",
+        [dense_view_inputs(fv, cam, ctx["plan"].dense_e_cap, device,
+                           clip_near=True)[0] for cam in ctx["cams"]],
+        against, card)
+    del indoor, ctx, fv
+
+    def indoor_row(path, row):
+        keys = ("ms", "launched_ms", "plain_ms", "bound_ms", "bound_by",
+                "heaviest_tile_ms", "culled_share")
+        return {"indoor": {"path": path,
+                           **{k: row[k] for k in keys if k in row}}}
 
     kernels = [{
         "name": "raster_tile",
@@ -1851,6 +2369,7 @@ def main():
         **tile_row,
         # no single PyTorch call rasterizes triangles
         "library_ms": None,
+        **indoor_row("large indoor + clip", tile_indoor),
     }, {
         "name": "raster_dense",
         "route": "cuda",
@@ -1861,6 +2380,7 @@ def main():
         "max_abs_err": dense_err,
         **dense_row,
         "library_ms": None,
+        **indoor_row("scannet indoor + clip", dense_indoor),
     }]
     phase(f"done in {time.monotonic() - t0:.1f} s")
     print(card)

@@ -9,8 +9,10 @@ step stays on the device (no host sync), with the (P, C) accumulator in
 device memory. Distorted views (`distortions`, any COLMAP lens) render
 under their virtual-pinhole focal and gather the primitive image onto the
 distorted pixels before they fuse; `shared_lens` computes the
-undistortion grid once for a batch of one physical camera. Multi-device
-sharding is not ported yet (see ROADMAP).
+undistortion grid once for a batch of one physical camera. `clip_near`
+renders each view through the near-plane clipper, as the per-view
+renderers do; a clipped plan never takes the uni-slot split.
+Multi-device sharding is not ported yet (see ROADMAP).
 
 Layout: probs here are (N, H, W, C), not the public API's (W, H).
 """
@@ -30,8 +32,8 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
                           images_equal_weight, *, num_primitives, aggregator,
                           height, width, max_tris_per_tile=256,
                           prim_transform=None, face_vertices=None,
-                          dense_e_cap=None, tri_ids=None, backend=None,
-                          resample_grid=None, device="cuda"):
+                          clip_near=False, dense_e_cap=None, tri_ids=None,
+                          backend=None, resample_grid=None, device="cuda"):
     """One fused render+aggregate step on one view.
 
     camera_arrays: (rotation, translation, focal_lengths, principal_point).
@@ -45,7 +47,8 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
     (scaled) focal in camera_arrays: rasterizer and prim_transform run in
     pinhole space, and one gather maps the primitive image onto the
     distorted pixels before it fuses, as the per-view render() -> add()
-    path does. Returns
+    path does. clip_near: rasterize the near-plane-clipped pieces
+    (tiles.setup_clipped). Returns
     ((P, C) fusion delta, overflow int32 tensor): overflow counts the
     candidate pairs and micro rows the rasterizer dropped under its budgets
     this view.
@@ -54,8 +57,9 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
     tri, depth, overflow = rast.rasterize(
         vertices, faces, rot, trans, fl, pp,
         height=height, width=width, max_tris_per_tile=max_tris_per_tile,
-        face_vertices=face_vertices, dense_e_cap=dense_e_cap,
-        tri_ids=tri_ids, backend=backend, device=device,
+        face_vertices=face_vertices, clip_near=clip_near,
+        dense_e_cap=dense_e_cap, tri_ids=tri_ids, backend=backend,
+        device=device,
     )
     if prim_transform is not None:
         tri = prim_transform(tri, depth, camera_arrays)
@@ -94,8 +98,9 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
                principal_points, probs, images_equal_weight, weights=None,
                distortions=None, prim_remap=None, *, num_primitives,
                aggregator, height, width, max_tris_per_tile=256,
-               dense_e_cap=None, backend=None, predict_fn=None,
-               prim_transform=None, shared_lens=False, device="cuda"):
+               clip_near=False, dense_e_cap=None, backend=None,
+               predict_fn=None, prim_transform=None, shared_lens=False,
+               device="cuda"):
     """Render and fuse N views into one accumulator.
 
     rotations (N,3,3), translations (N,3), focal_lengths/principal_points
@@ -116,7 +121,9 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     prim_remap: optional (T,) int32 primitive id to emit per face row, how
     a split plan returns its accumulator in original face order (the dense
     rasterizer writes the ids into its tables, see rasterize.rasterize).
-    dense_e_cap / backend: the dense budget and the backend (plan_fuse).
+    clip_near: render through the near-plane clipper (a clipped plan has
+    no prim_remap). dense_e_cap / backend: the dense budget and the
+    backend (plan_fuse).
     predict_fn: optional per-view hook `(H, W, ...) -> (H, W, C)` probs;
     `probs` then holds its inputs. prim_transform: see
     render_and_accumulate (fuse_views_texels passes its shader).
@@ -157,8 +164,8 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
             num_primitives=num_primitives, aggregator=aggregator,
             height=height, width=width, max_tris_per_tile=max_tris_per_tile,
             prim_transform=prim_transform, face_vertices=face_vertices,
-            dense_e_cap=dense_e_cap, tri_ids=prim_remap, backend=backend,
-            resample_grid=grid, device=device,
+            clip_near=clip_near, dense_e_cap=dense_e_cap, tri_ids=prim_remap,
+            backend=backend, resample_grid=grid, device=device,
         )
         acc = delta if acc is None else acc + delta
         overflow = overflow + ov
@@ -185,11 +192,9 @@ def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
     splits) and the backend it was planned for. distortions,
     shared_lens: see fuse_views; texels shade under the virtual focal,
     then the texel image is resampled onto the distorted pixels.
-    predict_fn: see fuse_views. `clip_near` raises NotImplementedError
-    (not ported yet)."""
-    if clip_near:
-        raise NotImplementedError(
-            "near-plane clipping: not ported yet, see ROADMAP")
+    predict_fn: see fuse_views. clip_near: rasterize the clipped pieces
+    and shade with the camera-space ray form, as a TexelsRenderer(
+    clip_near=True) does (pass its tables)."""
     device = resolve_device(device)
     vertices = fusion._as_f32(vertices, device)
     faces = torch.as_tensor(faces, dtype=torch.int64, device=device)
@@ -201,7 +206,7 @@ def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
     def shade(tri, _depth, camera_arrays):
         return render._texel_prim_image(
             vertices, faces, *camera_arrays, tri, resolutions,
-            first_texel_index, num_primitives)
+            first_texel_index, num_primitives, clip_near=clip_near)
 
     # the cameras move to the device once; the rasterizer and the shader
     # then read each view's slices in place
@@ -211,8 +216,9 @@ def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
         probs, images_equal_weight, weights, distortions,
         num_primitives=num_primitives, aggregator=aggregator, height=height,
         width=width, max_tris_per_tile=max_tris_per_tile,
-        dense_e_cap=dense_e_cap, backend=backend, predict_fn=predict_fn,
-        prim_transform=shade, shared_lens=shared_lens, device=device,
+        clip_near=clip_near, dense_e_cap=dense_e_cap, backend=backend,
+        predict_fn=predict_fn, prim_transform=shade, shared_lens=shared_lens,
+        device=device,
     )
 
 
@@ -242,8 +248,8 @@ class FusePlan:
 
 def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
               principal_points, *, height, width, backend=None,
-              micro_max=None, distortions=None, allow_split=True, route=None,
-              device="cuda"):
+              clip_near=False, micro_max=None, distortions=None,
+              allow_split=True, route=None, device="cuda"):
     """Probe a scene once and build the FusePlan every batched fusion
     shares. For the tile rasterizer this is a no-op plan (no probes, no
     budget). For the dense rasterizer: the routing pick (micro_max=None:
@@ -251,15 +257,17 @@ def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
     `route` overriding its cost coefficients) or the stats at a fixed
     micro_max, then the choice between the uni-slot prefix and micro
     compaction (dense.split_wins; the two are mutually exclusive).
-    allow_split=False always plans compaction. distortions: (N, 4|9) lens
+    allow_split=False always plans compaction, and so does clip_near: its
+    probes count the 2T piece rows, and a uni prefix would permute faces,
+    not pieces. distortions: (N, 4|9) lens
     wires or None; the probes then run under each view's virtual focal
     (render._distortion_scales), the focal its render rasterizes with. A
     few host syncs in all, never one per view."""
     device = resolve_device(device)
     faces_t = torch.as_tensor(faces, dtype=torch.int64, device=device)
-    n_rows = int(faces_t.shape[0])
+    n_rows = int(faces_t.shape[0]) * (2 if clip_near else 1)
     shared = lens_shared(focal_lengths, principal_points, distortions)
-    if not rast.uses_dense(backend, n_rows):
+    if not rast.uses_dense(backend, int(faces_t.shape[0])):
         return FusePlan(faces_t, None, lens_shared=shared)
     dense = rast.dense
     face_vertices = fusion._as_f32(vertices, device)[faces_t]
@@ -275,14 +283,16 @@ def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
     kw = dict(face_vertices=face_vertices, height=height, width=width,
               device=device)
     if micro_max is None:
-        curve = dense.routing_stats_batch(None, None, *cams, **kw)
+        curve = dense.routing_stats_batch(None, None, *cams,
+                                          clip_near=clip_near, **kw)
         pairs, micro, micro_max = dense.pick_route(curve.tolist(), n_rows,
                                                    **(route or {}))
     else:
         pairs, micro = dense.candidate_stats_batch(
-            None, None, *cams, micro_max=micro_max, **kw).tolist()
+            None, None, *cams, clip_near=clip_near, micro_max=micro_max,
+            **kw).tolist()
 
-    if allow_split:
+    if allow_split and not clip_near:
         perm, k = dense.uni_order(None, None, *cams, **kw)
         if k and dense.split_wins(k, n_rows, micro, micro_max):
             perm_t = torch.as_tensor(perm, device=device)
@@ -330,17 +340,21 @@ def fuse_views_planned(plan, vertices, rotations, translations,
 def fuse_views_split(vertices, faces, rotations, translations,
                      focal_lengths, principal_points, probs,
                      images_equal_weight, weights=None, *, num_primitives,
-                     aggregator, height, width, backend=None, micro_max=None,
-                     distortions=None, route=None, device="cuda", **kwargs):
+                     aggregator, height, width, backend=None, clip_near=False,
+                     micro_max=None, distortions=None, route=None,
+                     device="cuda", **kwargs):
     """plan_fuse + fuse_views_planned in one call: the dense path's
     uni-slot prefix where dense.split_wins says it beats micro compaction,
-    right-sized compaction budgets otherwise. Equals fuse_views."""
+    right-sized compaction budgets otherwise (always with clip_near).
+    Equals fuse_views."""
     plan = plan_fuse(
         vertices, faces, rotations, translations, focal_lengths,
         principal_points, height=height, width=width, backend=backend,
-        micro_max=micro_max, distortions=distortions, route=route,
-        device=device,
+        clip_near=clip_near, micro_max=micro_max, distortions=distortions,
+        route=route, device=device,
     )
+    if clip_near:
+        kwargs["clip_near"] = True
     if backend is not None:
         kwargs["backend"] = backend
     if distortions is not None:

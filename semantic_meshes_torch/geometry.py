@@ -1,13 +1,13 @@
 """Geometry: rotations, rigid transforms, projection, lens models, texels.
 
-Counterpart of `semantic_meshes/geometry.py` without the near-plane
-clipping: `quaternion_to_rotation` and `look_at` run in numpy on the host
-(they build camera parameters); `rigid_transform`, `pinhole_project`, the
-COLMAP lens models (`distort_normalized`, `undistort_normalized`,
-`max_monotonic_radius` on the classic (..., 4) and the extended (..., 9)
-wire), the barycentric helpers, the texel grid (`texel_count`,
-`texel_index(_uv)`) and `reorder_faces_for_texels` run in torch on
-whatever device their inputs live on.
+Counterpart of `semantic_meshes/geometry.py`: `quaternion_to_rotation`
+and `look_at` run in numpy on the host (they build camera parameters);
+`rigid_transform`, `pinhole_project`, the COLMAP lens models
+(`distort_normalized`, `undistort_normalized`, `max_monotonic_radius` on
+the classic (..., 4) and the extended (..., 9) wire), the barycentric
+helpers, the near-plane clipper `clip_triangles_near`, the texel grid
+(`texel_count`, `texel_index(_uv)`) and `reorder_faces_for_texels` run in
+torch on whatever device their inputs live on.
 
 Precision: the 3x3 transform is written out elementwise (as
 `semantic_meshes/rasterize/xla.py::_face_vertices_cam` does), so no matmul
@@ -411,6 +411,57 @@ def perspective_correct(bary2d, z_cam):
     depth = 1.0 / denom
     bary3d = inv_z * depth[..., None]
     return bary3d, depth
+
+
+def clip_triangles_near(cam_verts, znear):
+    """Clip camera-space triangles (T, 3, 3) against the plane z = znear
+    (`semantic_meshes.geometry.clip_triangles_near`, op for op).
+
+    Each triangle gives up to two pieces: a triangle with two vertices in
+    front clips to a quad, cut along (A, BC). Returns (pieces (T, 2, 3, 3),
+    valid (T, 2) bool): where valid, every piece vertex lies at z >= znear
+    (the cut vertices exactly on the plane), and each piece keeps the
+    input's cyclic orientation. Invalid pieces hold whatever the selects
+    give; callers mask them."""
+    z = cam_verts[..., 2]
+    in_front = z > znear
+    bits = in_front.to(torch.int64)
+    pattern = bits[:, 0] + 2 * bits[:, 1] + 4 * bits[:, 2]
+    # JAX's perm table as a cyclic shift, so the in-front vertices come
+    # first: patterns 2 and 6 shift by 1, patterns 4 and 5 by 2 (no host
+    # table, so the clipper can be captured in a CUDA graph)
+    shift = torch.where((pattern == 2) | (pattern == 6), 1,
+                        torch.where((pattern == 4) | (pattern == 5), 2, 0))
+    perm = (torch.arange(3, device=cam_verts.device)[None, :]
+            + shift[:, None]) % 3
+    p = torch.gather(cam_verts, 1, perm[..., None].expand(-1, -1, 3))
+    a, b, c = p[:, 0], p[:, 1], p[:, 2]
+    za, zb, zc = a[..., 2], b[..., 2], c[..., 2]
+    plane = torch.full_like(za, znear)
+
+    def isect(p0, p1, z0, z1):
+        t = (plane - z0) / torch.where(z1 == z0, torch.ones_like(z1),
+                                       z1 - z0)
+        t = torch.clamp(t, 0.0, 1.0)[..., None]
+        out = p0 + t * (p1 - p0)
+        # z pinned to the plane (no rounding residue below znear)
+        return torch.cat([out[..., :2], plane[..., None]], dim=-1)
+
+    ab = isect(a, b, za, zb)
+    ac = isect(a, c, za, zc)
+    bc = isect(b, c, zb, zc)
+
+    n_in = in_front.sum(dim=-1)
+    full = (n_in == 3)[:, None, None]
+    one = (n_in == 1)[:, None, None]
+    # piece 0: the whole triangle | (A, AB, AC) | (A, B, BC)
+    p0 = torch.where(full, p, torch.where(one,
+                                          torch.stack([a, ab, ac], dim=1),
+                                          torch.stack([a, b, bc], dim=1)))
+    # piece 1, for two vertices in front only: (A, BC, AC)
+    p1 = torch.stack([a, bc, ac], dim=1)
+    return (torch.stack([p0, p1], dim=1),
+            torch.stack([n_in >= 1, n_in == 2], dim=1))
 
 
 # --------------------------------------------------------------- texel grid

@@ -68,8 +68,10 @@ def rasterize(vertices, faces, *args, backend=None, tri_ids=None,
     writes them into its candidate table and fragment keys, so depth ties
     break by these ids; the tile backend remaps each pixel after its
     z-resolve, as the JAX package's non-dense backends do, so ties break
-    by face row there. dense_e_cap: a probed dense budget (dense_kwargs);
-    ignored by the tile backend."""
+    by face row there. With clip_near the tile backend remaps after its
+    piece ids are mapped back to triangles; the dense backend refuses
+    tri_ids (its rows are clip pieces, not faces). dense_e_cap: a probed
+    dense budget (dense_kwargs); ignored by the tile backend."""
     if check_backend(faces.shape[0], backend) == "dense":
         kwargs.pop("max_tris_per_tile", None)
         return dense.rasterize(vertices, faces, *args, tri_ids=tri_ids,

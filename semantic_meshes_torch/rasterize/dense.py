@@ -24,7 +24,12 @@ DENSE_THRESHOLD faces or more (ScanNet scale), in four steps per view:
 
 Every float -> int32 conversion saturates (NaN -> 0) and int32 sums wrap,
 as XLA's do, so classification and counts equal the JAX package's number
-for number. Near-plane clipping is not ported (`clip_near=True` raises).
+for number.
+
+clip_near: every step runs on the 2T setup rows of the clipped pieces
+(tiles.setup_clipped), probes and budgets count pieces, and `rasterize`
+maps each winning piece id back to its triangle with id >> 1 at its
+return. `tri_ids` is refused there: the rows are pieces, not faces.
 """
 
 from __future__ import annotations
@@ -283,11 +288,14 @@ def _micro_key(setup, micro, height, width, y_offset, tri_ids=None,
     return key, torch.zeros((), dtype=torch.int32, device=key.device)
 
 
-def _check_args(micro_max, micro_split, micro_cap_rows, clip_near):
+def _check_args(micro_max, micro_split, micro_cap_rows, clip_near=False,
+                tri_ids=None):
     _check_micro_max(micro_max)
-    if clip_near:
-        raise NotImplementedError(
-            "near-plane clipping: not ported yet, see ROADMAP")
+    if tri_ids is not None and clip_near:
+        raise ValueError(
+            "tri_ids is unsupported with clip_near: setup rows are clip "
+            "pieces, not faces (and micro_split already excludes "
+            "clip_near)")
     if micro_split is not None and micro_cap_rows is not None:
         raise ValueError(
             "micro_split and micro_cap_rows are mutually exclusive: the "
@@ -307,11 +315,12 @@ def resolve_inputs(vertices, faces, rotation, translation, focal_lengths,
     dense_kernel.resolve_dense, or None when e_cap_rows == 0 (the pure-micro
     path: no binning and no kernel; every pair counts as overflow);
     micro_key is the fragment path's packed image; overflow an int32
-    scalar tensor (dropped pairs + dropped micro rows)."""
-    _check_args(micro_max, micro_split, micro_cap_rows, clip_near)
+    scalar tensor (dropped pairs + dropped micro rows). With clip_near
+    every id in them is a piece id (rasterize maps it back)."""
+    _check_args(micro_max, micro_split, micro_cap_rows, clip_near, tri_ids)
     setup = tiles.setup_inputs(vertices, faces, rotation, translation,
                                focal_lengths, principal_point, face_vertices,
-                               device)
+                               device, clip_near)
     T = setup["denom"].shape[0]
     y_offset = float(y_offset)
     if tri_ids is not None:
@@ -356,8 +365,9 @@ def rasterize(vertices, faces, rotation, translation, focal_lengths,
     gives the same image, but budgets probed at one threshold hold only at
     that threshold. micro_split: rows [0, k) emit one fragment slot
     (exclusive with micro_cap_rows). tri_ids: (T,) ids to emit per face
-    row; depth ties then break by these ids. Every dropped pair or micro
-    row is counted in overflow."""
+    row; depth ties then break by these ids (refused with clip_near).
+    clip_near: resolve the 2T clipped piece rows and return triangle ids.
+    Every dropped pair or micro row is counted in overflow."""
     args, key, overflow = resolve_inputs(
         vertices, faces, rotation, translation, focal_lengths,
         principal_point, y_offset, face_vertices, height=height, width=width,
@@ -369,6 +379,14 @@ def rasterize(vertices, faces, rotation, translation, focal_lengths,
         depth, ids = dense_kernel.decode_micro(key)
     else:
         depth, ids = dense_kernel.resolve_dense(*args)
+    if clip_near:
+        # piece id -> triangle id, after the micro merge (the pure-micro
+        # path too), as the JAX package's dense.py:740 and 809 do. Until
+        # here ids are piece ids < 2T: the micro keys (z bits << 32) | id
+        # and the id lane of raster_dense's table carry them, 998784 at
+        # `dense` (499392 faces), well inside the 31 bits both allow
+        # (the micro background is id 0x7FFFFFFF).
+        ids = torch.where(ids >= 0, ids >> 1, ids)
     return ids, depth, overflow
 
 
@@ -376,9 +394,9 @@ def rasterize(vertices, faces, rotation, translation, focal_lengths,
 
 
 def _setups(vertices, faces, rotations, translations, focal_lengths,
-            principal_points, face_vertices, device):
+            principal_points, face_vertices, device, clip_near=False):
     """Triangle setup of each view of a camera batch (leading axis), from
-    one face-vertex gather."""
+    one face-vertex gather (clip_near: the clipped piece rows)."""
     device = resolve_device(device)
     if face_vertices is None:
         v = torch.as_tensor(vertices, dtype=torch.float32, device=device)
@@ -387,7 +405,7 @@ def _setups(vertices, faces, rotations, translations, focal_lengths,
     for i in range(len(rotations)):
         yield tiles.setup_inputs(None, None, rotations[i], translations[i],
                                  focal_lengths[i], principal_points[i],
-                                 face_vertices, device)
+                                 face_vertices, device, clip_near)
 
 
 def _stats(setup, height, width, y_offset, micro_max, micro_split):
@@ -414,11 +432,12 @@ def candidate_stats(vertices, faces, rotation, translation, focal_lengths,
                     height, width, clip_near=False, micro_max=None,
                     micro_split=None, device="cuda"):
     """(pairs, micro triangles) of one view as a (2,) int32 device tensor:
-    the probe for `e_cap_rows` and `micro_cap_rows`."""
-    _check_args(micro_max, None, None, clip_near)
+    the probe for `e_cap_rows` and `micro_cap_rows` (with clip_near, of
+    the 2T piece rows)."""
+    _check_micro_max(micro_max)
     setup = tiles.setup_inputs(vertices, faces, rotation, translation,
                                focal_lengths, principal_point, face_vertices,
-                               device)
+                               device, clip_near)
     return _stats(setup, height, width, float(y_offset), micro_max,
                   micro_split)
 
@@ -430,11 +449,11 @@ def candidate_stats_batch(vertices, faces, rotations, translations,
                           device="cuda"):
     """Elementwise max over a camera batch of candidate_stats (a loop over
     the views on the device, carrying the running max; no host sync)."""
-    _check_args(micro_max, None, None, clip_near)
+    _check_micro_max(micro_max)
     best = None
     for setup in _setups(vertices, faces, rotations, translations,
                          focal_lengths, principal_points, face_vertices,
-                         device):
+                         device, clip_near):
         s = _stats(setup, height, width, float(y_offset), micro_max,
                    micro_split)
         best = s if best is None else torch.maximum(best, s)
@@ -465,11 +484,12 @@ def uni_eligible(vertices, faces, rotation, translation, focal_lengths,
                  principal_point, face_vertices=None, *, height, width,
                  clip_near=False, device="cuda"):
     """(T,) bool: the triangle's pixel-centre bbox is at most 1x1 in this
-    view, or it is invalid or off screen (it emits nothing either way)."""
-    _check_args(None, None, None, clip_near)
+    view, or it is invalid or off screen (it emits nothing either way).
+    With clip_near the mask is per piece row (2T): a prefix permutes
+    faces, not pieces, so the uni-slot split is not used with clipping."""
     setup = tiles.setup_inputs(vertices, faces, rotation, translation,
                                focal_lengths, principal_point, face_vertices,
-                               device)
+                               device, clip_near)
     return _uni_from_setup(setup, height, width)
 
 
@@ -478,11 +498,10 @@ def uni_eligible_batch(vertices, faces, rotations, translations,
                        height, width, clip_near=False, device="cuda"):
     """AND of uni_eligible over a camera batch (leading axis), on the
     device."""
-    _check_args(None, None, None, clip_near)
     uni = None
     for setup in _setups(vertices, faces, rotations, translations,
                          focal_lengths, principal_points, face_vertices,
-                         device):
+                         device, clip_near):
         u = _uni_from_setup(setup, height, width)
         uni = u if uni is None else uni & u
     return uni
@@ -513,22 +532,22 @@ def routing_stats(vertices, faces, rotation, translation, focal_lengths,
                   height, width, clip_near=False,
                   thresholds=ROUTING_THRESHOLDS, device="cuda"):
     """routing_curve of one view (the candidate_stats argument contract)."""
-    _check_args(None, None, None, clip_near)
     setup = tiles.setup_inputs(vertices, faces, rotation, translation,
                                focal_lengths, principal_point, face_vertices,
-                               device)
+                               device, clip_near)
     return routing_curve(setup, height, width, float(y_offset), thresholds)
 
 
 def routing_stats_batch(vertices, faces, rotations, translations,
                         focal_lengths, principal_points, y_offset=0.0,
                         face_vertices=None, *, height, width,
-                        thresholds=ROUTING_THRESHOLDS, device="cuda"):
+                        clip_near=False, thresholds=ROUTING_THRESHOLDS,
+                        device="cuda"):
     """Elementwise max over a camera batch of routing_stats (no sync)."""
     best = None
     for setup in _setups(vertices, faces, rotations, translations,
                          focal_lengths, principal_points, face_vertices,
-                         device):
+                         device, clip_near):
         c = routing_curve(setup, height, width, float(y_offset), thresholds)
         best = c if best is None else torch.maximum(best, c)
     return best
@@ -562,7 +581,8 @@ def pick_micro_max(curve, n_setup_rows, thresholds=ROUTING_THRESHOLDS,
     (+ gamma*K_SPAN*rows while any pair remains: the binning sort is
     skipped at zero pairs, unless a grow-only pair floor keeps it).
 
-    curve: (pairs, micro) host ints per threshold. alpha/beta/gamma (ns)
+    curve: (pairs, micro) host ints per threshold. n_setup_rows: rows of
+    the setup (2 x faces under clip_near). alpha/beta/gamma (ns)
     default to ROUTE_ALPHA/BETA/GAMMA. Fragment rows are
     threshold^2 * min(2*micro, rows), the budget the cap policy gives.
     Ties go to the smaller threshold."""

@@ -225,12 +225,14 @@ def resolve_tiles(table, cand, counts, y_offset, nbx, height, width):
 
 def resolve_inputs(vertices, faces, rotation, translation, focal_lengths,
                    principal_point, y_offset=0.0, face_vertices=None, *,
-                   height, width, max_tris_per_tile=256, device="cuda"):
+                   height, width, max_tris_per_tile=256, clip_near=False,
+                   device="cuda"):
     """Setup + binning of one view: (the argument tuple of resolve_tiles,
-    overflow int32 scalar tensor)."""
+    overflow int32 scalar tensor). With clip_near the rows are the 2T
+    clipped pieces and the resolve returns piece ids."""
     setup = tiles.setup_inputs(
         vertices, faces, rotation, translation, focal_lengths,
-        principal_point, face_vertices, device,
+        principal_point, face_vertices, device, clip_near,
     )
     y_offset = float(y_offset)
     cand, counts, overflow = tiles._bin_triangles(
@@ -251,15 +253,19 @@ def rasterize(vertices, faces, rotation, translation, focal_lengths,
     sampled at (x + 0.5, y + 0.5). Coverage is inclusive; ties on depth go
     to the lower triangle index. `y_offset` (a python number) renders the
     row band [y_offset, y_offset + height) of a taller image.
+
+    clip_near: triangles crossing z = tiles.CLIP_Z_NEAR render their
+    in-front part (tiles.setup_clipped) instead of being culled; the
+    resolve runs on the 2T piece rows and each winning piece id maps back
+    to its triangle, as `pallas_kernel.rasterize` does.
     """
-    if clip_near:
-        raise NotImplementedError(
-            "near-plane clipping: not ported yet, see ROADMAP"
-        )
     args, overflow = resolve_inputs(
         vertices, faces, rotation, translation, focal_lengths,
         principal_point, y_offset, face_vertices, height=height,
-        width=width, max_tris_per_tile=max_tris_per_tile, device=device,
+        width=width, max_tris_per_tile=max_tris_per_tile,
+        clip_near=clip_near, device=device,
     )
     depth, ids = resolve_tiles(*args)
+    if clip_near:  # piece id -> triangle id
+        ids = torch.where(ids >= 0, ids >> 1, ids)
     return ids, depth, overflow

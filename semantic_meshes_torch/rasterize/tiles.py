@@ -2,15 +2,20 @@
 
 Counterpart of the setup and binning half of
 `semantic_meshes/rasterize/xla.py` (`_setup_from_projected`,
-`setup_from_face_vertices`, `_triangle_setup`, `_make_setup`,
-`_bin_triangles`) and the texel shader's oracle `barycentrics_at_pixels`.
-Each op is written in the JAX code's order, so the per-triangle
-coefficients round the same way on the CPU and the card.
+`setup_from_face_vertices`, `setup_clipped`, `_triangle_setup`,
+`_make_setup`, `_bin_triangles`) and the texel shader's oracle
+`barycentrics_at_pixels`. Each op is written in the JAX code's order, so
+the per-triangle coefficients round the same way on the CPU and the card.
 
 Determinism: per tile, candidates are the tile's overlapping triangle ids
 in ascending order, so the z-resolve (rasterize/tile_kernel.py) keeps the
-lowest id on a depth tie. Near-plane handling culls any triangle with a
-vertex at z <= Z_NEAR; clipping is not ported yet.
+lowest id on a depth tie.
+
+Near plane: by default any triangle with a vertex at z <= Z_NEAR is culled.
+With clip_near, `setup_clipped` cuts each triangle at z = CLIP_Z_NEAR into
+up to two pieces, setup rows 2i and 2i + 1 of triangle i; the rasterizers
+map a winning row back to its triangle with id >> 1, which is monotone, so
+the lowest triangle id still wins a depth tie.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ from .. import geometry
 from ..data import resolve_device
 
 Z_NEAR = 1e-6
+# the clipping plane of clip_near (xla.CLIP_Z_NEAR)
+CLIP_Z_NEAR = 1e-4
 
 # Tile shape of the z-resolve: one CUDA block per (32, 128) tile
 TILE_H = 32
@@ -52,6 +59,23 @@ def setup_from_face_vertices(face_vertices, rotation, translation,
     cam = geometry.rigid_transform(rotation, translation, face_vertices)
     pix = geometry.pinhole_project(focal_lengths, principal_point, cam)
     return _setup_from_projected(pix, cam[..., 2])
+
+
+def setup_clipped(face_vertices, rotation, translation, focal_lengths,
+                  principal_point):
+    """Setup of the near-plane-clipped pieces of (T, 3, 3) face-vertex
+    positions: 2T rows, piece ids 2i and 2i + 1 for triangle i (ascending
+    piece order keeps the lowest-triangle-id tie-break; callers map a
+    winning id back with id >> 1). A piece that does not exist is invalid.
+    Pieces pinned to the plane project up to ~1e4 x the focal length."""
+    cam = geometry.rigid_transform(rotation, translation, face_vertices)
+    pieces, valid = geometry.clip_triangles_near(cam, CLIP_Z_NEAR)
+    t = cam.shape[0]
+    cam2 = pieces.reshape(2 * t, 3, 3)
+    pix2 = geometry.pinhole_project(focal_lengths, principal_point, cam2)
+    setup = _setup_from_projected(pix2, cam2[..., 2])
+    setup["valid"] = setup["valid"] & valid.reshape(2 * t)
+    return setup
 
 
 def _setup_from_projected(p, z):
@@ -103,9 +127,15 @@ def _setup_from_projected(p, z):
 
 
 def _make_setup(vertices, faces, rotation, translation, focal_lengths,
-                principal_point, face_vertices):
-    """Setup dispatch: gather-free when pre-expanded face vertices exist.
-    All inputs are f32 tensors on one device."""
+                principal_point, face_vertices, clip_near=False):
+    """Setup dispatch: gather-free when pre-expanded face vertices exist;
+    clip_near goes through the near-plane clipper (2 rows a triangle). All
+    inputs are f32 tensors on one device."""
+    if clip_near:
+        if face_vertices is None:
+            face_vertices = vertices[faces]
+        return setup_clipped(face_vertices, rotation, translation,
+                             focal_lengths, principal_point)
     if face_vertices is not None:
         return setup_from_face_vertices(
             face_vertices, rotation, translation, focal_lengths,
@@ -118,10 +148,12 @@ def _make_setup(vertices, faces, rotation, translation, focal_lengths,
 
 
 def setup_inputs(vertices, faces, rotation, translation, focal_lengths,
-                 principal_point, face_vertices=None, device="cuda"):
+                 principal_point, face_vertices=None, device="cuda",
+                 clip_near=False):
     """Triangle setup of one view from host or device inputs (numpy
     arrays or tensors): the gather-free path when `face_vertices` is given,
-    which then reads neither `vertices` nor `faces`."""
+    which then reads neither `vertices` nor `faces`; with clip_near the 2T
+    rows of the clipped pieces (setup_clipped)."""
     device = resolve_device(device)
 
     def f32(x):
@@ -134,7 +166,7 @@ def setup_inputs(vertices, faces, rotation, translation, focal_lengths,
         face_vertices = f32(face_vertices)
     return _make_setup(
         vertices, faces, f32(rotation), f32(translation),
-        f32(focal_lengths), f32(principal_point), face_vertices,
+        f32(focal_lengths), f32(principal_point), face_vertices, clip_near,
     )
 
 

@@ -25,9 +25,15 @@ then one gather that samples that image at each distorted pixel's
 undistorted ray (`_resample_wh`). A zero lens inside a distorted batch
 takes that path too and gives the pinhole render's bits.
 
-Not ported yet (see ROADMAP): near-plane clipping (`clip_near=True`
-raises), and the face-count bucketing that the JAX package uses only to
-share jit compilations (`bucket=` is accepted and changes nothing).
+`clip_near=True` renders the in-front part of every triangle that crosses
+the near plane (cameras inside the scene, e.g. indoor ScanNet) instead of
+culling it: the rasterizers resolve the 2T clipped pieces (budgets count
+pieces) and return triangle ids; texel mode sizes straddling triangles by
+their clamped piece areas and shades with the camera-space ray form.
+
+Not ported (see ROADMAP): the face-count bucketing that the JAX package
+uses only to share jit compilations (a texel renderer's `bucket=` is
+accepted and changes nothing).
 """
 
 from __future__ import annotations
@@ -226,22 +232,23 @@ def _batch(rot, trans, fl, pp):
 
 
 def _dense_count_probe(face_vertices, rot, trans, fl, pp, *, height, width,
-                       micro_max=None, device="cuda"):
+                       clip_near=False, micro_max=None, device="cuda"):
     """Max dense-path (pairs, micro) over a camera batch as a (2,) device
     tensor: the _DenseCapPolicy probe at a fixed routing threshold."""
     return rast.dense.candidate_stats_batch(
         None, None, rot, trans, fl, pp, face_vertices=face_vertices,
-        height=height, width=width, micro_max=micro_max, device=device)
+        height=height, width=width, clip_near=clip_near, micro_max=micro_max,
+        device=device)
 
 
 def _dense_routing_probe(face_vertices, rot, trans, fl, pp, *, height, width,
-                         device="cuda"):
+                         clip_near=False, device="cuda"):
     """Max (pairs, micro) per routing threshold over a camera batch as a
     (len(ROUTING_THRESHOLDS), 2) device tensor: the automatic routing
     probe."""
     return rast.dense.routing_stats_batch(
         None, None, rot, trans, fl, pp, face_vertices=face_vertices,
-        height=height, width=width, device=device)
+        height=height, width=width, clip_near=clip_near, device=device)
 
 
 class TrianglesRenderer:
@@ -253,15 +260,14 @@ class TrianglesRenderer:
     micro_max: the dense routing threshold; None picks one per resolution
     from one probe (dense.pick_route). route: keyword overrides of the
     pick's cost coefficients (alpha, beta, gamma; dense.pick_micro_max).
+    clip_near: render the in-front part of triangles that cross the near
+    plane (tiles.setup_clipped) instead of culling them; the dense budgets
+    then count the 2T piece rows.
     """
 
     def __init__(self, mesh: Ply, max_tris_per_tile: int = 256,
                  backend: str | None = None, clip_near: bool = False,
                  micro_max=None, route=None, device="cuda"):
-        if clip_near:
-            raise NotImplementedError(
-                "near-plane clipping: not ported yet, see ROADMAP"
-            )
         rast.dense._check_micro_max(micro_max)
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -277,6 +283,7 @@ class TrianglesRenderer:
         self.face_vertices = self.vertices[self.faces]
         self.max_tris_per_tile = int(max_tris_per_tile)
         self.backend = backend
+        self.clip_near = bool(clip_near)
         self.micro_max = micro_max
         self.route = dict(route or {})
         self.overflow_policy = _OverflowPolicy()
@@ -295,7 +302,9 @@ class TrianglesRenderer:
             return None
         rot, trans, fl, pp = _batch(rot, trans, fl, pp)
         key = (height, width)
-        kw = dict(height=height, width=width, device=self.device)
+        kw = dict(height=height, width=width, clip_near=self.clip_near,
+                  device=self.device)
+        rows = self._num_faces * (2 if self.clip_near else 1)
 
         def cams():
             if dist is None:
@@ -312,7 +321,7 @@ class TrianglesRenderer:
                 curve = _dense_routing_probe(self.face_vertices, *cams(),
                                              **kw)
                 return rast.dense.pick_route(
-                    curve.tolist(), self._num_faces,
+                    curve.tolist(), rows,
                     min_pairs_budget=self.dense_cap_policy.floor(key)[0],
                     **self.route,
                 )
@@ -343,7 +352,8 @@ class TrianglesRenderer:
             face_vertices=self.face_vertices, backend=self.backend,
             height=height, width=width,
             max_tris_per_tile=self.max_tris_per_tile,
-            dense_e_cap=dense_e_cap, device=self.device,
+            clip_near=self.clip_near, dense_e_cap=dense_e_cap,
+            device=self.device,
         )
         ids = self._shade(arrays, tri)
         if dist is None:
@@ -418,7 +428,8 @@ class TrianglesRenderer:
                 if _has_distortion(group) else None)
 
 
-def _texel_resolutions(vertices, faces, cameras, texels_per_pixel):
+def _texel_resolutions(vertices, faces, cameras, texels_per_pixel,
+                       clip_near=False):
     """Per-triangle texel grid resolution r = ceil(tpp * sqrt(max screen
     area)) as (T,) int32 on the device of `vertices`.
 
@@ -427,7 +438,14 @@ def _texel_resolutions(vertices, faces, cameras, texels_per_pixel):
     screen area iff a vertex lies in front of it (z > 0) and all three
     projected vertices fall inside the 0.5-resolution border box around
     the image. A running max over the cameras keeps memory O(T) however
-    many cameras there are."""
+    many cameras there are.
+
+    clip_near: a camera keeps the reference's area where it is positive
+    (all three vertices in front of the clipping plane and inside the
+    box); otherwise, for straddlers and triangles partly out of frame, the
+    summed area of the clipped pieces with their projected vertices
+    clamped into the box (a straddler's raw projection is unbounded), so
+    a triangle the clipped rasterizer covers gets texels."""
     device = vertices.device
 
     def f32(x):
@@ -443,10 +461,27 @@ def _texel_resolutions(vertices, faces, cameras, texels_per_pixel):
         lo = -0.5 * res[k]
         hi = 1.5 * res[k]
         p = geometry.pinhole_project(fl[k], pp[k], cam).reshape(-1, 3, 2)
-        in_front = (cam[:, 2].reshape(-1, 3) > 0).any(dim=-1)
         inside = ((p >= lo) & (p < hi)).reshape(-1, 6).all(dim=-1)
         area = geometry.triangle_screen_area(p)
-        area = torch.where(in_front & inside, area, torch.zeros_like(area))
+        if clip_near:
+            all_front = (cam[:, 2].reshape(-1, 3)
+                         > rast.tiles.CLIP_Z_NEAR).all(dim=-1)
+            area = torch.where(all_front & inside, area,
+                               torch.zeros_like(area))
+            pieces, valid = geometry.clip_triangles_near(
+                cam.reshape(-1, 3, 3), rast.tiles.CLIP_Z_NEAR)
+            pc = geometry.pinhole_project(fl[k], pp[k],
+                                          pieces.reshape(-1, 3))
+            pc = torch.minimum(torch.maximum(pc, lo), hi)
+            piece_area = geometry.triangle_screen_area(
+                pc.reshape(-1, 3, 2)).reshape(-1, 2)
+            area_clip = torch.where(valid, piece_area,
+                                    torch.zeros_like(piece_area)).sum(-1)
+            area = torch.where(area > 0, area, area_clip)
+        else:
+            in_front = (cam[:, 2].reshape(-1, 3) > 0).any(dim=-1)
+            area = torch.where(in_front & inside, area,
+                               torch.zeros_like(area))
         max_area = torch.maximum(max_area, area)
     return torch.ceil(float(texels_per_pixel) * torch.sqrt(max_area)).to(
         torch.int32)
@@ -465,8 +500,9 @@ class TexelsRenderer(TrianglesRenderer):
     is not touched). Rendering, budgets and overflow are
     TrianglesRenderer's, with each triangle-id image shaded into texel ids;
     pixels of no texel (background, or a triangle no sizing camera saw)
-    read 0xFFFFFFFF. backend as in TrianglesRenderer; clip_near=True
-    raises (not ported); `bucket` is accepted and changes nothing."""
+    read 0xFFFFFFFF. backend and clip_near as in TrianglesRenderer; with
+    clip_near the sizing counts clipped pieces and the shader uses the
+    camera-space ray form; `bucket` is accepted and changes nothing."""
 
     def __init__(self, mesh: Ply, cameras, texels_per_pixel: float = 0.1,
                  max_tris_per_tile: int = 256, backend: str | None = None,
@@ -480,7 +516,8 @@ class TexelsRenderer(TrianglesRenderer):
         if not cameras:
             raise ValueError("texels renderer needs at least one camera")
         self.resolutions = _texel_resolutions(self.vertices, self.faces,
-                                              cameras, texels_per_pixel)
+                                              cameras, texels_per_pixel,
+                                              self.clip_near)
         self.faces = geometry.reorder_faces_for_texels(self.vertices,
                                                        self.faces)
         self.face_vertices = self.vertices[self.faces]
@@ -506,7 +543,8 @@ class TexelsRenderer(TrianglesRenderer):
         # shader must see the focal the triangle ids were rasterized under
         prim = _texel_prim_image(
             self.vertices, self.faces, *camera_arrays, tri,
-            self.resolutions, self.first_texel_index, self._primitive_num)
+            self.resolutions, self.first_texel_index, self._primitive_num,
+            clip_near=self.clip_near)
         return torch.where(prim < self._primitive_num, prim,
                            torch.full_like(prim, -1))
 
@@ -518,7 +556,8 @@ def _camera_arrays(camera):
 
 def _texel_prim_image(vertices, faces, rotation, translation, focal_lengths,
                       principal_point, tri_index, resolutions,
-                      first_texel_index, num_primitives, y_offset=0):
+                      first_texel_index, num_primitives, y_offset=0,
+                      clip_near=False):
     """Texel primitive ids (H, W) int32 of a rasterized triangle-id image
     tri_index (H, W) int32 (-1 empty); pixels of no texel (empty, or on a
     triangle of resolution 0) get `num_primitives`.
@@ -530,20 +569,45 @@ def _texel_prim_image(vertices, faces, rotation, translation, focal_lengths,
     table row per pixel: the 9 f32 coefficients of A1, A2 and S as int32
     bits, the resolution and the first texel index, (T, 11) int32. u and v
     are true divisions. Runs on tri_index's device; the same op order as
-    the JAX package's `_texel_prim_image`."""
+    the JAX package's `_texel_prim_image`.
+
+    clip_near: the forms come from camera-space vertices V_i instead: for
+    the pixel ray d(x, y) = ((x - cx) / fx, (y - cy) / fy, 1), A_i =
+    d . (V_j x V_k) is affine in (x, y) and holds when a vertex lies
+    behind the camera, so the triangle ids of a clipped render index the
+    per-triangle table as usual. The cross products are written out as
+    separate multiplies and subtractions (a fused cross kernel on the card
+    may contract a*b - c*d into an FMA, which the CPU's does not) and the
+    focal lengths divide truly, so the card's ids equal the CPU's."""
     device = tri_index.device
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
     faces = torch.as_tensor(faces, device=device).long()
-    pix, z_cam = rast.tiles.project_vertices(
-        f32(vertices), f32(rotation), f32(translation), f32(focal_lengths),
-        f32(principal_point))
-    setup = rast.tiles._triangle_setup(pix, z_cam, faces)
-    inv_z = torch.reciprocal(torch.clamp(z_cam[faces], min=rast.Z_NEAR))
-    aff = [[setup[k][:, i] * inv_z[:, i] for k in ("a", "b", "c")]
-           for i in range(3)]  # A_i = (a_i, b_i, c_i) * inv_z_i
+    if clip_near:
+        v_cam = geometry.rigid_transform(f32(rotation), f32(translation),
+                                         f32(vertices))[faces]  # (T, 3, 3)
+        fl, pp = f32(focal_lengths), f32(principal_point)
+
+        def aff_ray(j, k):  # d . (V_j x V_k) as an affine form in (x, y)
+            vj, vk = v_cam[:, j], v_cam[:, k]
+            n0 = vj[:, 1] * vk[:, 2] - vj[:, 2] * vk[:, 1]
+            n1 = vj[:, 2] * vk[:, 0] - vj[:, 0] * vk[:, 2]
+            n2 = vj[:, 0] * vk[:, 1] - vj[:, 1] * vk[:, 0]
+            a = torch.div(n0, fl[0])
+            b = torch.div(n1, fl[1])
+            return [a, b, n2 - pp[0] * a - pp[1] * b]
+
+        aff = [aff_ray(1, 2), aff_ray(2, 0), aff_ray(0, 1)]
+    else:
+        pix, z_cam = rast.tiles.project_vertices(
+            f32(vertices), f32(rotation), f32(translation),
+            f32(focal_lengths), f32(principal_point))
+        setup = rast.tiles._triangle_setup(pix, z_cam, faces)
+        inv_z = torch.reciprocal(torch.clamp(z_cam[faces], min=rast.Z_NEAR))
+        aff = [[setup[k][:, i] * inv_z[:, i] for k in ("a", "b", "c")]
+               for i in range(3)]  # A_i = (a_i, b_i, c_i) * inv_z_i
     s = [aff[0][k] + aff[1][k] + aff[2][k] for k in range(3)]
     table = torch.stack(
         [c.view(torch.int32) for c in aff[1] + aff[2] + s]

@@ -84,14 +84,23 @@ def test_exact_budget_is_bit_identical_and_undersized_counts():
 
 
 def test_split_and_compaction_are_exclusive_and_clipping_raises():
+    """micro_split and micro_cap_rows are exclusive and micro_max is
+    checked; clipping, once refused here, is ported and on this scene in
+    front of the camera gives the culled render."""
     v, f = sc.uni_scene()
     cam = sc.ring_cam(256, 96)
     with pytest.raises(ValueError, match="mutually exclusive"):
         dense.rasterize(v, f, *cam, height=96, width=256, micro_split=4,
                         micro_cap_rows=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="clipping"):
-        dense.rasterize(v, f, *cam, height=96, width=256, clip_near=True,
-                        device="cpu")
+    # clipping (ported): every triangle lies in front of this camera, so
+    # the clipped render is the culled one bit for bit, ids as JAX's
+    clip = dense.rasterize(v, f, *cam, height=96, width=256, clip_near=True,
+                           device="cpu")
+    cull = dense.rasterize(v, f, *cam, height=96, width=256, device="cpu")
+    assert torch.equal(clip[0], cull[0]) and int(clip[2]) == 0
+    assert torch.equal(clip[1].view(torch.int32), cull[1].view(torch.int32))
+    np.testing.assert_array_equal(clip[0].numpy(), np.asarray(xla.rasterize(
+        v, f, *cam, height=96, width=256, clip_near=True)[0]))
     with pytest.raises(ValueError, match="micro_max"):
         dense.rasterize(v, f, *cam, height=96, width=256, micro_max=9,
                         device="cpu")

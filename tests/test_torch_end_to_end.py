@@ -243,7 +243,8 @@ class TestBatchedPipeline:
 
 
 def test_unported_features_raise(tmp_path, cube_scene):
-    """Near-plane clipping raises; a lens (ported) renders JAX's ids."""
+    """Near-plane clipping (ported) renders JAX's clipped ids, through the
+    dense rasterizer too; a lens (ported) renders JAX's ids."""
     vertices, faces, cams = cube_scene
     mesh = _write_cube(tmp_path, vertices, faces)
     renderer = render.triangles(mesh, device="cpu")
@@ -265,8 +266,19 @@ def test_unported_features_raise(tmp_path, cube_scene):
     np.testing.assert_allclose(depth.numpy()[fin], np.asarray(jdepth)[fin],
                                rtol=DEPTH_RTOL)
     renderer.prepare([cam, lens])  # a no-op for the tile rasterizer
-    with pytest.raises(NotImplementedError, match="clipping"):
-        render.triangles(mesh, clip_near=True, device="cpu")
+    # clipping (ported): the clipped render equals JAX's
+    jcam = semantic_meshes.data.Camera(
+        cam.rotation, cam.translation, cam.resolution, cam.focal_lengths,
+        cam.principal_point)
+    ids, depth = render.triangles(mesh, clip_near=True,
+                                  device="cpu").render(cam)
+    jids, jdepth = semantic_meshes.render.triangles(
+        semantic_meshes.data.Ply(mesh.path), clip_near=True).render(jcam)
+    np.testing.assert_array_equal(
+        ids.view(torch.int32).numpy().view(np.uint32), np.asarray(jids))
+    fin = np.isfinite(np.asarray(jdepth))
+    np.testing.assert_allclose(depth.numpy()[fin], np.asarray(jdepth)[fin],
+                               rtol=DEPTH_RTOL)
     # a mesh of DENSE_THRESHOLD faces goes to the dense rasterizer (these
     # faces are degenerate: nothing is drawn, through a lens too, as in
     # JAX); clipping still raises
@@ -283,8 +295,12 @@ def test_unported_features_raise(tmp_path, cube_scene):
     np.testing.assert_array_equal(
         ids.view(torch.int32).numpy().view(np.uint32), np.asarray(jids))
     assert bool(torch.isinf(depth).all())
-    with pytest.raises(NotImplementedError, match="clipping"):
-        render.triangles(big, clip_near=True, device="cpu")
+    # clipped through the dense rasterizer: still nothing drawn, as in JAX
+    clipped = render.triangles(big, clip_near=True, device="cpu")
+    ids, depth = clipped.render(cam)
+    assert bool((ids.view(torch.int32) == -1).all())
+    assert bool(torch.isinf(depth).all()) and clipped.overflow_total() == 0
+    assert clipped.dense_cap_policy._cap[(cam.height, cam.width)][:2] == (0, 0)
     assert render.triangles(big, backend="tile",
                             device="cpu").getPrimitivesNum() == 16384
     rot, trans, fl, pp = stack_cameras(cams)

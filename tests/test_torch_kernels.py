@@ -9,7 +9,8 @@ import numpy as np
 import pytest
 import torch
 
-from semantic_meshes_torch import distributed, fusion, ops, render, testing
+from semantic_meshes_torch import (distributed, fusion, geometry, ops, render,
+                                   testing)
 from semantic_meshes_torch.rasterize import dense, dense_kernel, tile_kernel
 from semantic_meshes_torch.data import Camera, stack_cameras
 
@@ -232,3 +233,71 @@ def test_dense_renderer_card_equals_cpu(cuda):
     for (ig, dg), (ic, dc) in zip(out[str(cuda)], out["cpu"]):
         assert torch.equal(ig.cpu().view(torch.int32), ic.view(torch.int32))
         assert torch.equal(dg.cpu().view(torch.int32), dc.view(torch.int32))
+
+
+def _clipped_scenes():
+    """Scenes with triangles across the near plane: the straddling scene
+    of tests/test_clipping.py (camera at the origin) and a camera inside
+    a 4 m room, grazing its floor."""
+    rng = np.random.default_rng(8)
+    v = rng.normal(size=(40, 3)).astype(np.float32) * 2
+    f = rng.integers(0, 40, size=(30, 3)).astype(np.int32)
+    yield v, f, Camera(np.eye(3), np.zeros(3), (1296, 968),
+                       [0.9 * 968, 0.9 * 968], [648.0, 484.0])
+    v, f = testing.make_cube(16, size=4.0)
+    rot, trans = geometry.look_at([0.3, -1.9, -1.0], [0.5, -1.95, 2.0],
+                                  [0, 1, 0])
+    yield v, f, Camera(rot, trans, (640, 480), [400.0, 400.0],
+                       [320.0, 240.0])
+
+
+@pytest.mark.parametrize("k", range(2))
+def test_clipped_kernels_match_plain(cuda, k):
+    """Both kernels on the 2T clipped piece rows (vertices pinned at z =
+    1e-4 project to ~1e4 x the focal length, so edge constants reach
+    ~1e13): ids and depths bit-equal to the plain version, which the CPU
+    reproduces."""
+    v, f, cam = list(_clipped_scenes())[k]
+    kw = dict(height=cam.height, width=cam.width, clip_near=True,
+              device=cuda)
+    arrays = (cam.rotation, cam.translation, cam.focal_lengths,
+              cam.principal_point)
+    args, _ = tile_kernel.resolve_inputs(v, f, *arrays, **kw)
+    assert args[0].shape[0] == 2 * len(f) + 1
+    zk, ik = tile_kernel.resolve_tiles_cuda(*args)
+    zp, ip = tile_kernel.resolve_tiles_plain(*args)
+    dargs, _, _ = dense.resolve_inputs(v, f, *arrays, **kw)
+    zd, idd = dense_kernel.resolve_dense_cuda(*dargs)
+    zdp, idp = dense_kernel.resolve_dense_plain(*dargs)
+    torch.cuda.synchronize()
+    for (z1, i1), (z2, i2) in (((zk, ik), (zp, ip)), ((zd, idd), (zdp, idp))):
+        assert torch.equal(i1, i2) and bool((i1 >= 0).any())
+        assert torch.equal(z1.view(torch.int32), z2.view(torch.int32))
+    assert torch.equal(ik, idd)
+    zc, ic = tile_kernel.resolve_tiles_plain(
+        *(a.cpu() if torch.is_tensor(a) else a for a in args))
+    assert torch.equal(ic, ik.cpu())
+    assert torch.equal(zc.view(torch.int32), zk.cpu().view(torch.int32))
+
+
+def test_clipped_texel_renderer_card_equals_cpu(cuda):
+    """Inside a room, clipped: the card's texel sizing and ray-form shader
+    give the CPU's resolutions and texel ids bit for bit, through both
+    rasterizers."""
+    from types import SimpleNamespace
+
+    v, f = testing.make_cube(8, size=4.0)
+    mesh = SimpleNamespace(vertices=v, faces=f)
+    cams = testing.make_ring_cameras(3, 320, 240, radius=0.8,
+                                     elevation=-0.625, target=(0, -0.9, 0))
+    for backend in ("tile", "dense"):
+        out = {}
+        for device in (cuda, "cpu"):
+            r = render.texels(mesh, cams, 0.5, clip_near=True,
+                              backend=backend, device=device)
+            out[str(device)] = (r.resolutions.cpu(),
+                                [r.render(c)[0].cpu() for c in cams])
+        assert torch.equal(out[str(cuda)][0], out["cpu"][0])
+        for ig, ic in zip(out[str(cuda)][1], out["cpu"][1]):
+            assert torch.equal(ig.view(torch.int32), ic.view(torch.int32))
+            assert bool((ic.view(torch.int32) >= 0).all())

@@ -151,8 +151,9 @@ def test_dense_kernel_source_and_build_path():
 def test_dense_size_meshes_render_while_unported_features_raise(tmp_path):
     """A mesh of DENSE_THRESHOLD faces or more goes to the dense
     rasterizer (it raised before it was ported), through a lens too (equal
-    to the JAX package's distorted render, its dense path op by op);
-    near-plane clipping still raises."""
+    to the JAX package's distorted render, its dense path op by op), and
+    with near-plane clipping (ported), equal to the culled render from
+    outside the mesh."""
     vertices, faces = testing.make_cube(37)  # 16428 faces
     assert len(faces) >= semantic_meshes_torch.rasterize.DENSE_THRESHOLD
     write_mesh(tmp_path / "m.ply", vertices, faces)
@@ -163,8 +164,13 @@ def test_dense_size_meshes_render_while_unported_features_raise(tmp_path):
     assert ids.dtype == torch.uint32 and tuple(ids.shape) == (128, 96)
     assert bool((ids.view(torch.int32) >= 0).any())
     assert renderer.overflow_total() == 0
-    with pytest.raises(NotImplementedError, match="clipping"):
-        render.triangles(mesh, clip_near=True, device="cpu")
+    # clipping (ported): from outside the mesh, the clipped dense render is
+    # the culled one bit for bit (JAX's test_clip_matches_cull_when_all_in_
+    # front), with budgets probed over the 2T piece rows
+    clipped = render.triangles(mesh, clip_near=True, device="cpu")
+    cids, cdepth = clipped.render(cam)
+    assert torch.equal(cids, ids) and torch.equal(cdepth, depth)
+    assert clipped.overflow_total() == 0
     lens = data.Camera(cam.rotation, cam.translation, cam.resolution,
                        cam.focal_lengths, cam.principal_point,
                        distortion=np.array([0.1, 0, 0, 0], np.float32))

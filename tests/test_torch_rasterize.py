@@ -285,6 +285,10 @@ def test_cpu_resolve_never_counts_launches_and_cuda_path_refuses_cpu():
     counts = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         tile_kernel.resolve_tiles_cuda(table, cand, counts, 0.0, 1, 32, 128)
-    with pytest.raises(NotImplementedError, match="clipping"):
-        trast.rasterize(vertices, faces, *cam, height=64, width=128,
-                        clip_near=True, device="cpu")
+    # the clipped path (ported) counts no launch on the CPU either, and
+    # gives JAX's ids
+    ids, _, _ = trast.rasterize(vertices, faces, *cam, height=64, width=128,
+                                clip_near=True, device="cpu")
+    assert tile_kernel.launches == before
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(xla.rasterize(
+        vertices, faces, *cam, height=64, width=128, clip_near=True)[0]))

@@ -355,13 +355,27 @@ def test_texels_renderer_takes_a_colmap_workspace(tmp_path, cube_cams,
 
 
 def test_unported_texel_features_raise(tmp_path, cube_cams):
-    """Near-plane clipping raises; a lens (ported) renders, batched or
-    not, the JAX package's distorted texel ids under this file's rule."""
+    """Near-plane clipping (ported) sizes and shades as JAX's clipped
+    texel renderer; a lens (ported) renders, batched or not, the JAX
+    package's distorted texel ids under this file's rule."""
     vertices, faces = testing.make_cube(subdivisions=3)
     path = _mesh(tmp_path, vertices, faces)
     mesh = data.Ply(path)
-    with pytest.raises(NotImplementedError, match="clipping"):
-        render.texels(mesh, cube_cams, 1.5, clip_near=True, device="cpu")
+    clipped = render.texels(mesh, cube_cams, 1.5, clip_near=True,
+                            device="cpu")
+    jclipped = semantic_meshes.render.texels(
+        semantic_meshes.data.Ply(path), cube_cams, 1.5, clip_near=True)
+    _, res, first, P = convert.texel_params(jclipped)
+    np.testing.assert_array_equal(clipped.resolutions.numpy(), res)
+    assert clipped.getPrimitivesNum() == P
+    for cam in cube_cams:
+        got = clipped.render(cam)[0].view(torch.int32).numpy().T.astype(
+            np.int64)
+        want = np.asarray(jclipped.render(cam)[0]).T.astype(np.int64)
+        got[got < 0] = P
+        want[want == 0xFFFFFFFF] = P
+        tri = render.triangles(mesh, device="cpu").render(cam)[0]
+        _id_rule(got, want, tri.view(torch.int32).numpy().T, first, res, P)
     renderer = render.texels(mesh, cube_cams, 1.5, bucket=True,
                              device="cpu")
     cam = cube_cams[0]

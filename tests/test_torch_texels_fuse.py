@@ -176,9 +176,10 @@ def test_render_and_accumulate_prim_transform_hook(tile_scene):
 
 
 def test_unported_fusion_options_raise(tile_scene):
-    """Near-plane clipping raises; a lens (ported) fuses as the JAX
-    package's fuse_views_texels does, and a zero lens gives the pinhole
-    fusion's bits."""
+    """Near-plane clipping (ported) fuses as the JAX package's clipped
+    fuse_views_texels does; a lens (ported) fuses as the JAX package's
+    fuse_views_texels does, and a zero lens gives the pinhole fusion's
+    bits."""
     vertices, cams, renderer, jrenderer = tile_scene
     probs = _probs(len(cams), 2, 1)
     dist = np.zeros((len(cams), 4), np.float32)
@@ -193,8 +194,11 @@ def test_unported_fusion_options_raise(tile_scene):
     assert int(ov) == 0 and not torch.equal(acc, plain)
     np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), rtol=RTOL,
                                atol=ATOL)
-    with pytest.raises(NotImplementedError, match="clipping"):
-        _fuse(renderer, vertices, cams, probs, "sum", clip_near=True)
+    acc, ov = _fuse(renderer, vertices, cams, probs, "sum", clip_near=True)
+    jacc, _ = _jax_fuse(jrenderer, cams, probs, "sum", clip_near=True)
+    assert int(ov) == 0
+    np.testing.assert_allclose(acc.numpy(), np.asarray(jacc), rtol=RTOL,
+                               atol=ATOL)
 
 
 def test_forced_dense_texel_plan_equals_per_view(tile_scene, monkeypatch):
