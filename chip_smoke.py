@@ -109,6 +109,27 @@ each phase prints a line and raises on failure:
    replays) against the culled setup. The kernel line's `launches`
    counts `large` and `scannet`; `launches_by_path` every path's run.
 
+6. the ScanNet eval path (eval_scannet.py around the renderer, the model
+   left out) at `scannet`, every step a PhaseTimers phase: a
+   1024-frame .sens stream written with data2.scannet.write_sens (the
+   views' rendered depth in mm at 640x480, random colour blobs of a
+   JPEG's size, the timestamps shuffled); read by the native reader (the
+   host IO library, built by g++ in this phase) and the python one:
+   headers, frame order, payloads and every decoded depth equal, index
+   and decode times; cameras of frames[::128] within 1e-5 of the
+   preset's; seeded face labels, the label images from the port's
+   render, peaked network probabilities (two views partly flipped) on
+   disk as f32 .npy and top-3 .npz; probs_io.load on the f32, f16, u8
+   and top-k wires (read, pin, upload and densify times); fuse_views
+   with probs=(values, indices) and predict_fn=TopKDensify(40) == the
+   per-view render -> densify -> add path bit for bit, densify on the
+   card == the CPU's on every view; checkpoint after 4 views and resume
+   == straight; network (forbidden) and fused (error, ModelRenderer of
+   get()) Accuracy / MeanIoU / ConfusionMatrix with the card's matrices
+   == the CPU's; one pass of the frame loop traced by
+   profiling.trace_to, with a user annotation per phase. The launch
+   counters are read around it (`launches_by_path` "scannet eval").
+
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
         tar -x -C build/parent
@@ -126,11 +147,13 @@ import importlib
 import importlib.util
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from concurrent.futures import ThreadPoolExecutor
 from types import SimpleNamespace
 
@@ -2219,6 +2242,438 @@ def texel_times(name, ctx, device, card):
                 fusion_ms=fusion_ms)
 
 
+# the ScanNet eval path (phase 6): eval_scannet.py around the renderer,
+# with the model left out, at `scannet` and ScanNet's own sizes: a stream
+# of EVAL_FRAMES frames (a scene holds 10^3-10^4; the eval samples every
+# EVAL_STEP-th), 640x480 depth in mm (depth_shift 1000), colour blobs of
+# a JPEG's size, NYU40 classes, top-K = EVAL_TOPK probability files
+EVAL_FRAMES = 1024
+EVAL_STEP = 128
+EVAL_DEPTH_HW = (480, 640)
+EVAL_COLOR_BYTES = 150_000
+EVAL_TOPK = 3
+# views whose network labels are partly flipped (EVAL_FLIP of the faces
+# carry another class), so the fused labels can beat the network's
+EVAL_FLIPPED = (1, 5)
+EVAL_FLIP = 0.3
+EVAL_WIRES = ("f32", "f16", "u8")
+# the phases of one traced pass of eval_scannet.py's frame loop
+EVAL_PASS = ("render", "load", "predict", "metrics_network", "fuse")
+
+
+def intrinsic_matrix(fl, pp, scale=1.0):
+    k = np.eye(4, dtype=np.float32)
+    k[0, 0], k[1, 1] = fl[0] * scale, fl[1] * scale
+    k[0, 2], k[1, 2] = pp[0] * scale, pp[1] * scale
+    return k
+
+
+def write_eval_stream(path, cams, depth_mm, rng):
+    """write_sens of EVAL_FRAMES frames: the sorted stream dwells
+    EVAL_FRAMES / views frames on each view in turn (frames[::EVAL_STEP]
+    then holds one frame a view, in view order), written in the order of
+    a seeded permutation of the timestamps. A view's depth blob is zlib of
+    its rendered depth in mm, reused; every colour blob is random bytes.
+    Returns the bytes written."""
+    from semantic_meshes_torch.data2.scannet import write_sens
+
+    width, height = cams[0].resolution
+    world_to_cam = []
+    for cam in cams:
+        m = np.eye(4)
+        m[:3, :3], m[:3, 3] = cam.rotation, cam.translation
+        world_to_cam.append(m)
+    camera_to_world = [np.linalg.inv(m).astype(np.float32)
+                       for m in world_to_cam]
+    blobs = [zlib.compress(d.tobytes()) for d in depth_mm]
+    per_view = EVAL_FRAMES // len(cams)
+    stamps = rng.permutation(EVAL_FRAMES)
+    frames = [dict(camera_to_world=camera_to_world[int(ts) // per_view],
+                   timestamp_color=int(ts), timestamp_depth=int(ts),
+                   color_data=rng.bytes(EVAL_COLOR_BYTES),
+                   depth_data=blobs[int(ts) // per_view])
+              for ts in stamps]
+    eye = np.eye(4, dtype=np.float32)
+    scale = EVAL_DEPTH_HW[1] / width
+    write_sens(path, "chip_smoke", intrinsic_matrix(
+        cams[0].focal_lengths, cams[0].principal_point), eye,
+        intrinsic_matrix(cams[0].focal_lengths, cams[0].principal_point,
+                         scale), eye, (height, width), EVAL_DEPTH_HW,
+        1000.0, frames)
+    return os.path.getsize(path)
+
+
+def same_stream(a, b):
+    """Headers, frame order, poses, timestamps and payloads equal."""
+    for k in ("sensor_name", "color_compression_type",
+              "depth_compression_type", "color_width", "color_height",
+              "depth_width", "depth_height", "depth_shift"):
+        if getattr(a, k) != getattr(b, k):
+            raise AssertionError(f".sens readers differ on {k}")
+    for k in ("intrinsic_color", "extrinsic_color", "intrinsic_depth",
+              "extrinsic_depth"):
+        if not np.array_equal(getattr(a, k), getattr(b, k)):
+            raise AssertionError(f".sens readers differ on {k}")
+    if len(a.frames) != len(b.frames):
+        raise AssertionError(".sens readers differ on the frame count")
+    for i, (fa, fb) in enumerate(zip(a.frames, b.frames)):
+        if (fa.timestamp_color, fa.timestamp_depth) != (
+                fb.timestamp_color, fb.timestamp_depth) or not \
+                np.array_equal(fa.camera_to_world, fb.camera_to_world) or \
+                fa.color_data != fb.color_data or \
+                fa.depth_data != fb.depth_data:
+            raise AssertionError(f".sens readers differ on frame {i}")
+
+
+def frame_cameras(sens, frames):
+    """eval_scannet.py:379-398: the colour camera's sanity checks, then a
+    Camera of each frame (R, t from the inverse of its camera_to_world)."""
+    import semantic_meshes_torch as smt
+
+    if not np.all(np.isclose(sens.extrinsic_color, np.eye(4))):
+        raise AssertionError(f"colour extrinsics {sens.extrinsic_color}")
+    k = np.asarray(sens.intrinsic_color)
+    chk = k.copy()
+    chk[0, 0] = chk[1, 1] = 1
+    chk[0, 2] = chk[1, 2] = 0
+    if not np.all(np.isclose(chk, np.eye(4))):
+        raise AssertionError(f"colour intrinsics {k}")
+    out = []
+    for frame in frames:
+        w2c = np.linalg.inv(frame.camera_to_world)
+        out.append(smt.data.Camera(
+            w2c[:3, :3], w2c[:3, 3], (sens.color_width, sens.color_height),
+            (k[0, 0], k[1, 1]), (k[0, 2], k[1, 2])))
+    return out
+
+
+def network_probs(peak, classes, gen):
+    """(H, W, C) softmax probabilities from seeded noise, peaked at class
+    `peak` (H, W) of each pixel."""
+    noise = torch.randn(peak.shape + (classes,), generator=gen,
+                        device=peak.device)
+    noise.scatter_add_(-1, peak[..., None], torch.full(
+        peak.shape + (1,), 4.0, device=peak.device))
+    return torch.softmax(noise, dim=-1)
+
+
+def topk_npz(path, probs, k):
+    """scripts/precompute_probs.py --topk's layout: u8 values descending,
+    uint8 indices, classes."""
+    import semantic_meshes_torch as smt
+
+    vals, idx = torch.topk(probs, k, dim=-1)
+    np.savez(path, values=smt.probs_io.quantize_u8(vals.cpu().numpy()),
+             indices=idx.to(torch.uint8).cpu().numpy(),
+             classes=np.int32(probs.shape[-1]))
+
+
+def timed_load(base, wire, device):
+    """probs_io.load(base, wire) step by step with host clocks: (loaded,
+    {read, pin, upload ms}, bytes on the wire). The upload is waited for."""
+    import semantic_meshes_torch as smt
+
+    t0 = time.perf_counter()
+    if wire == "topk":
+        with np.load(base + ".npz") as z:
+            host = [torch.from_numpy(np.ascontiguousarray(z[key]))
+                    for key in ("values", "indices")]
+            classes = int(z["classes"])
+    else:
+        host = [smt.probs_io._cast_wire(np.load(base + ".npy"), wire)]
+    t1 = time.perf_counter()
+    pinned = [h.pin_memory() for h in host]
+    t2 = time.perf_counter()
+    dev = [p.to(device, non_blocking=True) for p in pinned]
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    loaded = smt.probs_io.TopKProbs(*dev, classes) if wire == "topk" \
+        else dev[0]
+    ms = {"read": (t1 - t0) * 1e3, "pin": (t2 - t1) * 1e3,
+          "upload": (t3 - t2) * 1e3}
+    return loaded, ms, sum(h.nbytes for h in host)
+
+
+def cm_equal(label, card_group, cpu_cm):
+    """Each metric's confusion matrix on the card equals the CPU's bit for
+    bit (one CPU ConfusionMatrix fed the same frames); its result equals,
+    at rtol 1e-6 (class reductions), the same metric's on the CPU matrix."""
+    for m in card_group:
+        if not torch.equal(m.full_matrix.cpu(), cpu_cm.full_matrix):
+            raise AssertionError(f"{label} {m.name}: the card's confusion "
+                                 "matrix differs from the CPU's")
+        on_cpu = type(m)(m.classes_num, "error" if m.pred_error
+                         else "forbidden", device="cpu")
+        on_cpu.merge(cpu_cm)
+        if not torch.allclose(m.result().cpu(), on_cpu.result(), rtol=1e-6,
+                              atol=0):
+            raise AssertionError(f"{label} {m.name}: results differ")
+
+
+def trace_annotations(trace_file):
+    """Names of the user annotations in a Chrome trace."""
+    with open(trace_file) as f:
+        events = json.load(f).get("traceEvents", [])
+    return {e.get("name") for e in events
+            if e.get("cat") == "user_annotation"}
+
+
+def scannet_eval(device, card):
+    """Phase 6: eval_scannet.py's path around the renderer at `scannet`,
+    the launch counters read around it. Every step is a PhaseTimers
+    phase. Returns raster_dense's launches."""
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch import native
+    from semantic_meshes_torch.data2 import SensFile
+
+    _, n_views, width, height, classes = SCENES["scannet"]
+    vertices, faces, cams = scene("scannet")
+    T = len(faces)
+    timers = smt.profiling.PhaseTimers()
+    rng = np.random.default_rng(SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    reset_launches()
+    renders = 0
+    workdir = tempfile.mkdtemp(prefix="scannet_eval_")
+    try:
+        renderer = smt.render.triangles(
+            SimpleNamespace(vertices=vertices, faces=faces), device=device)
+        renderer.prepare(cams)
+        cap = renderer.dense_cap_policy._cap[(height, width)]
+
+        # 1. the stream: depth in mm from the port's render of each view
+        with timers.phase("write_stream"):
+            depth_mm = []
+            for cam in cams:
+                depth = renderer.render(cam)[1].t()
+                renders += 1
+                mm = torch.where(torch.isfinite(depth), depth * 1000.0,
+                                 torch.zeros_like(depth))
+                mm = torch.clamp(torch.round(mm), 0, 65535).to(torch.int32)
+                depth_mm.append(smt.data2.scannet._resize_nearest(
+                    mm.cpu().numpy().astype("<u2"), EVAL_DEPTH_HW))
+            sens_path = os.path.join(workdir, "scene.sens")
+            sens_bytes = write_eval_stream(sens_path, cams, depth_mm, rng)
+
+        # 2. read it through the native and the plain reader
+        t0 = time.perf_counter()
+        native.load()  # builds the host library: not part of a read
+        build_s = time.perf_counter() - t0
+        reads = {}
+        for name, read in (("native", SensFile), ("python", SensFile.plain)):
+            with timers.phase(f"read_{name}"):
+                t0 = time.perf_counter()
+                stream = read(sens_path)
+                t1 = time.perf_counter()
+                depths = stream.decode_all_depths()
+                t2 = time.perf_counter()
+            reads[name] = (stream, depths)
+            phase(f"phase 6 [{card}]: .sens {name} reader, {EVAL_FRAMES} "
+                  f"frames, {sens_bytes} bytes: index {(t1 - t0) * 1e3:.3f} "
+                  f"ms, decode_all_depths {(t2 - t1) * 1e3:.3f} ms "
+                  f"({depths.nbytes / 1e6 / (t2 - t1):.1f} MB/s inflated)"
+                  + (f"; host library built in {build_s:.1f} s"
+                     if name == "native" else ""))
+        sens, depths = reads["native"]
+        same_stream(sens, reads["python"][0])
+        if not np.array_equal(depths, reads["python"][1]):
+            raise AssertionError("native and python depth batches differ")
+        per_view = EVAL_FRAMES // n_views
+        for j in range(EVAL_FRAMES):
+            if not np.array_equal(depths[j], depth_mm[j // per_view]):
+                raise AssertionError(f"decoded depth of frame {j} differs "
+                                     "from the one written")
+        del reads, depths
+
+        # 3. cameras of frames[::EVAL_STEP], as the eval samples them
+        with timers.phase("cameras"):
+            eval_cams = frame_cameras(sens, sens.frames[::EVAL_STEP])
+        for j, (got, want) in enumerate(zip(eval_cams, cams)):
+            err = max(np.abs(got.rotation - want.rotation).max(),
+                      np.abs(got.translation - want.translation).max())
+            if err > 1e-5 or got.resolution != want.resolution:
+                raise AssertionError(f"frame camera {j}: |R, t err| {err}")
+
+        # 4. labels and network probabilities on disk
+        with timers.phase("labels_probs"):
+            face_labels = torch.from_numpy(
+                rng.integers(0, classes, T).astype(np.int64)).to(device)
+            other = (face_labels + torch.from_numpy(rng.integers(
+                1, classes, T)).to(device)) % classes
+            flipped = torch.where(
+                torch.from_numpy(rng.random(T) < EVAL_FLIP).to(device),
+                other, face_labels)
+            ids_wh, gts = [], []
+            for j, cam in enumerate(eval_cams):
+                ids = renderer.render(cam)[0]
+                renders += 1
+                ids_wh.append(ids)
+                prim = ids.view(torch.int32).t().long()
+                hit = prim >= 0
+                face = prim.clamp(min=0)
+                gt = torch.where(hit, face_labels[face], -1)
+                gts.append(gt.to(torch.int32))
+                net = flipped if j in EVAL_FLIPPED else face_labels
+                peak = torch.where(hit, net[face], torch.randint(
+                    0, classes, gt.shape, generator=gen, device=device))
+                probs = network_probs(peak, classes, gen)
+                np.save(os.path.join(workdir, f"probs{j}.npy"),
+                        probs.cpu().numpy())
+                topk_npz(os.path.join(workdir, f"topk{j}.npz"), probs,
+                         EVAL_TOPK)
+                del probs
+        if renderer.overflow_total() != 0:
+            raise AssertionError("scannet eval renders overflowed")
+
+        # 5. load every wire, densify, fuse the top-k one
+        with timers.phase("load_wires"):
+            wire_ms, topk = {}, []
+            for wire in EVAL_WIRES + ("topk",):
+                rows = []
+                for j in range(n_views):
+                    base = os.path.join(
+                        workdir, f"topk{j}" if wire == "topk"
+                        else f"probs{j}")
+                    loaded, ms, nbytes = timed_load(base, wire, device)
+                    t0 = time.perf_counter()
+                    dense = smt.probs_io.densify(loaded)
+                    torch.cuda.synchronize()
+                    ms["densify"] = (time.perf_counter() - t0) * 1e3
+                    if dense.shape != (height, width, classes) or \
+                            dense.dtype != torch.float32:
+                        raise AssertionError(f"{wire}: densify gave "
+                                             f"{dense.dtype} {dense.shape}")
+                    rows.append(ms)
+                    if wire == "topk":
+                        topk.append(loaded)
+                    del dense
+                wire_ms[wire] = ({k: statistics.median(r[k] for r in rows)
+                                  for k in rows[0]}, nbytes)
+            again = smt.probs_io.load(os.path.join(workdir, "topk0"),
+                                      device=device)
+            if not (torch.equal(again.values, topk[0].values)
+                    and torch.equal(again.indices, topk[0].indices)):
+                raise AssertionError("probs_io.load != its timed steps")
+        for wire, (ms, nbytes) in wire_ms.items():
+            phase(f"phase 6 [{card}]: wire {wire}: {nbytes} bytes a view; "
+                  "per view (medians of 8) " + ", ".join(
+                      f"{k} {v:.3f} ms" for k, v in ms.items()))
+
+        rot, trans, fl, pp = smt.data.stack_cameras(eval_cams)
+        with timers.phase("fuse_batch"):
+            values = torch.stack([t.values for t in topk])
+            indices = torch.stack([t.indices for t in topk])
+            acc, ov = smt.distributed.fuse_views(
+                vertices, faces, rot, trans, fl, pp, (values, indices), IEW,
+                num_primitives=T, aggregator="sum", height=height,
+                width=width, dense_e_cap=cap,
+                predict_fn=smt.probs_io.TopKDensify(classes), device=device)
+            renders += n_views
+            agg = smt.fusion.MeshAggregator(T, classes, "sum", IEW,
+                                            device=device)
+            for ids, t in zip(ids_wh, topk):
+                agg.add(ids, smt.probs_io.densify(t).transpose(0, 1))
+            torch.cuda.synchronize()
+        if int(ov) != 0:
+            raise AssertionError(f"top-k fuse_views overflow {int(ov)}")
+        if not torch.equal(acc, agg.state):
+            err = float((acc - agg.state).abs().max())
+            raise AssertionError(f"top-k fuse_views != per-view render -> "
+                                 f"densify -> add (max |err| {err})")
+        for j, t in enumerate(topk):
+            cpu = smt.probs_io.densify(smt.probs_io.TopKProbs(
+                t.values.cpu(), t.indices.cpu(), classes))
+            if not torch.equal(smt.probs_io.densify(t).cpu(), cpu):
+                raise AssertionError(f"densify view {j}: card != CPU")
+
+        # 6. checkpoint views 0-3, resume, fuse views 4-7
+        half = n_views // 2
+        with timers.phase("checkpoint"):
+            part = smt.fusion.MeshAggregator(T, classes, "sum", IEW,
+                                             device=device)
+            for ids, t in zip(ids_wh[:half], topk[:half]):
+                part.add(ids, smt.probs_io.densify(t).transpose(0, 1))
+            ckpt = os.path.join(workdir, "aggregator.npz")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            smt.checkpoint.save_aggregator(ckpt, part, views_done=half)
+            t1 = time.perf_counter()
+            resumed, done, _ = smt.checkpoint.load_aggregator(ckpt, device)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for ids, t in zip(ids_wh[done:], topk[done:]):
+                resumed.add(ids, smt.probs_io.densify(t).transpose(0, 1))
+        if done != half or not torch.equal(resumed.state, agg.state):
+            raise AssertionError("resumed fusion != the straight one")
+        phase(f"phase 6 [{card}]: checkpoint of the {T}x{classes} f32 state "
+              f"({agg.state.nbytes} bytes, file {os.path.getsize(ckpt)}): "
+              f"save {(t1 - t0) * 1e3:.3f} ms, load {(t2 - t1) * 1e3:.3f} "
+              f"ms; resumed == straight bit for bit")
+
+        # 7. metrics (eval_scannet.py:279-289), on the card and the CPU
+        modes = {"network": "forbidden", "fused": "error"}
+        with timers.phase("metrics"):
+            groups = {label: [cls(classes, mode, device=device) for cls in (
+                smt.metrics.Accuracy, smt.metrics.MeanIoU,
+                smt.metrics.ConfusionMatrix)]
+                for label, mode in modes.items()}
+            cpu = {label: smt.metrics.ConfusionMatrix(classes, mode,
+                                                      device="cpu")
+                   for label, mode in modes.items()}
+            model_renderer = agg.renderer()
+            for ids, gt, t in zip(ids_wh, gts, topk):
+                preds = {"network": smt.probs_io.densify(t),
+                         "fused": model_renderer.render(
+                             ids, background=0.0).transpose(0, 1)}
+                for label, pred in preds.items():
+                    for m in groups[label]:
+                        m.update_state_labels(gt, pred)
+                    cpu[label].update_state_labels(gt.cpu(), pred.cpu())
+            torch.cuda.synchronize()
+        for label in modes:
+            cm_equal(label, groups[label], cpu[label])
+            acc_, miou = (float(m.result()) for m in groups[label][:2])
+            phase(f"phase 6 [{card}]: {label} metrics: accuracy {acc_:.6f}, "
+                  f"mIoU {miou:.6f} (card == CPU confusion matrix)")
+
+        # 8. one traced pass of the frame loop, a user annotation a phase
+        trace_dir = os.path.join(workdir, "trace")
+        with smt.profiling.trace_to(trace_dir, device=device):
+            with timers.phase("render"):
+                ids = renderer.render(eval_cams[0])[0]
+                renders += 1
+            with timers.phase("load"):
+                t = smt.probs_io.load(os.path.join(workdir, "topk0"),
+                                      device=device)
+            with timers.phase("predict"):
+                net = smt.probs_io.densify(t)
+            with timers.phase("metrics_network"):
+                groups["network"][2].update_state_labels(gts[0], net)
+            with timers.phase("fuse"):
+                agg.add(ids, net.transpose(0, 1))
+        found = trace_annotations(os.path.join(
+            trace_dir, smt.profiling.TRACE_FILE))
+        missing = set(EVAL_PASS) - found
+        if missing:
+            raise AssertionError(f"trace lacks annotations {missing}")
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    launches = read_launches()
+    expect = renders if cap[0] > 0 else 0
+    if launches["raster_dense"] != expect or launches["raster_tile"] != 0:
+        raise AssertionError(f"scannet eval: launches {launches} for "
+                             f"{expect} views rasterized with pairs")
+    phase(f"phase 6 [{card}]: ScanNet eval path ok at scannet ({n_views} "
+          f"views {width}x{height}, {T} triangles, {classes} classes, "
+          f"dense budget {cap}): {EVAL_FRAMES}-frame .sens native == "
+          "python, frame cameras within 1e-5, top-k fuse_views == "
+          "per-view bit for bit, densify card == CPU, resume == straight, "
+          f"confusion matrices card == CPU, trace holds {list(EVAL_PASS)}; "
+          f"launches {launches}; phase timers {json.dumps(timers.as_dict())}")
+    return launches["raster_dense"]
+
+
 def parse_args():
     parser = argparse.ArgumentParser(
         description="Chip smoke run of semantic_meshes_torch on one card.")
@@ -2351,6 +2806,8 @@ def main():
                            clip_near=True)[0] for cam in ctx["cams"]],
         against, card)
     del indoor, ctx, fv
+
+    by_path["raster_dense"]["scannet eval"] = scannet_eval(device, card)
 
     def indoor_row(path, row):
         keys = ("ms", "launched_ms", "plain_ms", "bound_ms", "bound_by",

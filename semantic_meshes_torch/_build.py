@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels and its host IO library.
 
 Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library with
 a plain C interface, `build/torch_kernels/lib<name>-<hash>.so` at the root
@@ -6,8 +6,12 @@ of the checkout, the first time it is needed; the hash covers the source,
 the shared headers `csrc/*.cuh` and the flags, so an edited source or
 header rebuilds. nvcc's output (with the
 -Xptxas -v register and shared-memory report) is kept beside it as `.log`.
-The library is loaded with ctypes. A failed build raises; nothing falls
-back to another implementation.
+Each host source `csrc/<name>.cpp` (the `.sens` / images.bin IO library,
+see `native.py`) is compiled the same way by g++, with threads (no
+OpenMP) and zlib (`build_host`). Every library is written to a temporary
+file and renamed into place, so processes that build at once never load
+a partial one. The libraries are loaded with ctypes. A failed build
+raises; nothing falls back to another implementation.
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -26,6 +31,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
+
+CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-pthread", "-Wall", "-shared")
+CXX_LIBS = ("-lz",)
 
 _loaded = {}
 
@@ -92,3 +100,50 @@ def load(name):
     if name not in _loaded:
         _loaded[name] = ctypes.CDLL(str(build(name)[0]))
     return _loaded[name]
+
+
+def host_library_path(name):
+    """The library of csrc/<name>.cpp; its hash covers that source and
+    the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes())
+    h.update(" ".join(CXX_FLAGS + CXX_LIBS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_host(name):
+    """Compile csrc/<name>.cpp with g++ unless it is built already. Returns
+    the library's path; raises RuntimeError with g++'s output on failure."""
+    out = host_library_path(name)
+    if out.exists():
+        return out
+    cxx = shutil.which("g++")
+    if not cxx:
+        raise RuntimeError(
+            "g++ not found on PATH: the host IO library of "
+            "semantic_meshes_torch is built from source at first use")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(prefix=f".{out.name}.", suffix=".tmp",
+                               dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [cxx, *CXX_FLAGS, "-o", tmp, str(CSRC / f"{name}.cpp"), *CXX_LIBS]
+    try:
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"host library build failed: {name} (g++ exit "
+                f"{proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def load_host(name):
+    """The ctypes library of host source `name`, built first if needed."""
+    key = ("host", name)
+    if key not in _loaded:
+        _loaded[key] = ctypes.CDLL(str(build_host(name)))
+    return _loaded[key]

@@ -125,7 +125,9 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     no prim_remap). dense_e_cap / backend: the dense budget and the
     backend (plan_fuse).
     predict_fn: optional per-view hook `(H, W, ...) -> (H, W, C)` probs;
-    `probs` then holds its inputs. prim_transform: see
+    `probs` then holds its inputs: a stack, or a tuple or list of stacks
+    whose view i is the tuple of each stack's slice i (the JAX scan's
+    pytree), e.g. top-k `(values, indices)` with probs_io.TopKDensify. prim_transform: see
     render_and_accumulate (fuse_views_texels passes its shader).
     """
     device = resolve_device(device)
@@ -147,7 +149,10 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     acc = None
     overflow = torch.zeros((), dtype=torch.int32, device=device)
     for i in range(len(rotations)):
-        pr = probs[i]
+        # a tuple or list of stacks is a pytree of per-view leaves, as the
+        # JAX scan reads it: view i gets every leaf's slice i
+        pr = tuple(leaf[i] for leaf in probs) if isinstance(
+            probs, (tuple, list)) else probs[i]
         if predict_fn is not None:
             pr = predict_fn(pr)
         fl, grid = focal_lengths[i], None

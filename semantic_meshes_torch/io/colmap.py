@@ -2,11 +2,12 @@
 
 Own copy of the JAX package's `semantic_meshes/io/colmap.py`: the lazy
 geometry imports point at this package's `geometry`, and `images.bin` is
-read by the pure-python loop only (the JAX package's native one-pass
-indexer is not ported yet). Replaces tt::colmap::readCameras /
-readImageMetaData (ref: src/data/Colmap.cpp:7-23). Parses the documented
-public COLMAP format; raises proper exceptions instead of the reference's
-print + exit(-1) (ref: src/data/Colmap.cpp:60-61).
+read by the port's native one-pass indexer (`native.index_colmap_images`,
+built at first use; a failed build raises), with the pure-python loop
+kept as its plain version, `read_images_bin_plain`. Replaces
+tt::colmap::readCameras / readImageMetaData (ref: src/data/Colmap.cpp:7-23).
+Parses the documented public COLMAP format; raises proper exceptions
+instead of the reference's print + exit(-1) (ref: src/data/Colmap.cpp:60-61).
 """
 
 from __future__ import annotations
@@ -210,6 +211,34 @@ def read_cameras_txt(path):
 
 
 def read_images_bin(path):
+    """images.bin through the native one-pass indexer (variable-length
+    names defeat numpy vectorization); equals read_images_bin_plain."""
+    from .. import native
+
+    with open(path, "rb") as f:
+        data = f.read()
+    try:
+        recs = native.index_colmap_images(data)
+    except ValueError as e:  # typed-error contract: ColmapError
+        raise ColmapError(f"{path}: {e}") from None
+    return {
+        int(r["image_id"]): ColmapImage(
+            int(r["image_id"]),
+            np.asarray(r["qvec"], np.float64),
+            np.asarray(r["tvec"], np.float64),
+            int(r["camera_id"]),
+            data[
+                int(r["name_offset"]):
+                int(r["name_offset"]) + int(r["name_length"])
+            ].decode("utf-8", errors="replace"),
+        )
+        for r in recs
+    }
+
+
+def read_images_bin_plain(path):
+    """images.bin through the pure-python loop (the plain version of
+    read_images_bin)."""
     images = {}
     with open(path, "rb") as f:
         (num,) = struct.unpack("<Q", _bin_read(f, 8, path, "image count"))

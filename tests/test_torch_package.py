@@ -27,6 +27,11 @@ def test_import_pulls_in_no_jax():
         "import sys, semantic_meshes_torch\n"
         "import semantic_meshes_torch.rasterize.tile_kernel\n"
         "import semantic_meshes_torch.rasterize.dense_kernel\n"
+        "import semantic_meshes_torch.native\n"
+        "import semantic_meshes_torch.data2.scannet\n"
+        "from semantic_meshes_torch import (checkpoint, metrics, probs_io,\n"
+        "                                   profiling)\n"
+        "semantic_meshes_torch.native.load()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -56,6 +61,27 @@ def _imports(path):
 def test_no_jax_import_in_source(path):
     bad = [m for m in _imports(path) if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", sorted(p for p in PKG.rglob("*")
+                   if p.suffix in (".py", ".cu", ".cuh", ".cpp"))
+    + [ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_no_source_reaches_the_jax_packages_native_library(path):
+    """The port builds its own host IO library into build/torch_kernels/
+    (_build.build_host); no source names the repository's native/
+    directory, its Makefile or its libsens_io.so."""
+    text = path.read_text()
+    for needle in ("native/", "libsens_io.so", "make -C"):
+        assert needle not in text, f"{path} names {needle!r}"
+
+
+def test_new_modules_are_exported():
+    for name in ("checkpoint", "data2", "metrics", "probs_io",
+                 "profiling"):
+        assert hasattr(semantic_meshes_torch, name), name
 
 
 def test_default_device_is_the_card_without_fallback(tmp_path):
