@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke run of semantic_meshes_torch on one CUDA card (sm_90a).
 
-    python3 chip_smoke.py [--against DIR ...]
+    python3 chip_smoke.py [--against DIR ...] [--sharded-only]
 
 Drives the port's main paths through their public entry points, at six
 of bench.py's presets, their distorted variants and their indoor
@@ -130,6 +130,31 @@ each phase prints a line and raises on failure:
    profiling.trace_to, with a user annotation per phase. The launch
    counters are read around it (`launches_by_path` "scannet eval").
 
+7. multi-GPU fusion (distributed.make_sharded_fuse), on one card: each
+   kernel on row bands at y_offset = row0 (`large` in 2 and 4 bands of
+   768 and 384 rows and `default`'s mesh at 1296x968, raster_tile;
+   `scannet`, raster_dense, 484 and 242 rows: no tile multiple), every
+   band == the full render's rows and == plain (raster_dense on views 0
+   and 1), overflow 0; `scannet` in 2 and 4 face blocks merged by (z
+   bits, global id) == the full render; make_sharded_fuse at `scannet`
+   in an NCCL world of one == fuse_views bit for bit, timed in turns
+   with it. With two or more cards, one NCCL rank per card (spawned
+   processes): `scannet` on views, plain and with shard_primitives;
+   `large` on views x pixels; `scannet` on faces and on views x faces;
+   `texels01` (texel_params) on views x faces; `scannet` indoor +
+   clip_near and `scannet` + SIMPLE_RADIAL (shared_lens) on views; each
+   == fuse_views on one card within rtol 2e-5, atol 1e-5 with equal
+   overflow, two runs bit-identical, timed in turns with the one-card
+   batch (rasterize_fuse_throughput), rank 0's idle share from one
+   traced batch, and each collective of a batch timed alone against its
+   bound from its bytes and the NVLink bandwidth nvidia-smi reports. On
+   one card a phase line says the multi-card part did not run and why.
+   `launches_by_path` gains each sharded path (launches summed over the
+   ranks). --sharded-only runs phases 1, 2 and 7 alone (for calls on
+   several cards) and prints no kernel line.
+
+No earlier path was cut to make room for phase 7.
+
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
         tar -x -C build/parent
@@ -216,13 +241,18 @@ def phase(msg):
     print(f"{msg} [{time.monotonic() - _START:.1f} s]", flush=True)
 
 
-def card_line():
+def card_lines():
+    """Each card's name and power limit, as nvidia-smi reports them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()
-    return out[0].strip()
+    return [line.strip() for line in out]
+
+
+def card_line():
+    return card_lines()[0]
 
 
 def scene(name):
@@ -2674,9 +2704,584 @@ def scannet_eval(device, card):
     return launches["raster_dense"]
 
 
+# ---------------------------------------------------------------- phase 7
+# Multi-GPU fusion: semantic_meshes_torch.distributed.make_sharded_fuse.
+# On one card the kernels run on row bands and face blocks, and the fuse
+# runs in an NCCL world of one; with two or more cards one NCCL rank per
+# card runs every layout of sharded_cases against fuse_views on one card.
+
+BANDS = (2, 4)  # row bands (the `pixels` axis) and face blocks
+NO_ID = 2**31 - 1  # the face merge's sentinel, as distributed._NO_ID
+# NVLink of one H100 SXM each way (NVIDIA data sheet), used where
+# nvidia-smi does not list the links
+NVLINK_BYTES_S = 450e9
+SHARDED_RTOL, SHARDED_ATOL = 2e-5, 1e-5
+RANK_DEADLINE_S = 900
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def band_check(label, vertices, faces, cams, device, plain_views):
+    """Every view of a scene in 2 and 4 row bands, each rasterized alone
+    at y_offset = row0 with its own height, as a rank of a `pixels` axis
+    does: ids and depth bits equal the full render's rows, overflow 0, and
+    on `plain_views` the kernel equals its plain version on the band.
+    Returns the largest |depth error| against plain (0 when bit-equal)."""
+    from semantic_meshes_torch import rasterize as rast
+    from semantic_meshes_torch.rasterize import dense, dense_kernel, \
+        tile_kernel
+
+    width, height = cams[0].resolution
+    fv = face_vertices(vertices, faces, device)
+    use_dense = rast.uses_dense(None, len(faces))
+    cap = dense_budget(vertices, faces, cams, device) if use_dense else None
+    err = 0.0
+    for k, cam in enumerate(cams):
+        ids, z, ov = rast.rasterize(vertices, faces, *cam_args(cam),
+                                    face_vertices=fv, height=height,
+                                    width=width, dense_e_cap=cap,
+                                    device=device)
+        if int(ov):
+            raise AssertionError(f"{label} view {k}: overflow {int(ov)}")
+        for n in BANDS:
+            band = height // n
+            for b in range(n):
+                row0 = b * band
+                kw = dict(face_vertices=fv, height=band, width=width,
+                          device=device)
+                if use_dense:
+                    args, _, ov = dense.resolve_inputs(
+                        None, None, *cam_args(cam), row0, **kw,
+                        **rast.dense_kwargs(cap))
+                    if args is None:
+                        raise AssertionError(f"{label}: zero pair budget")
+                    zk, ik = dense_kernel.resolve_dense_cuda(*args)
+                    plain = dense_kernel.resolve_dense_plain
+                else:
+                    args, ov = tile_kernel.resolve_inputs(
+                        None, None, *cam_args(cam), row0, **kw)
+                    zk, ik = tile_kernel.resolve_tiles_cuda(*args)
+                    plain = tile_kernel.resolve_tiles_plain
+                where = (f"{label} band {b} of {n} (rows {row0}-"
+                         f"{row0 + band - 1})")
+                if int(ov):
+                    raise AssertionError(f"{where} view {k}: overflow "
+                                         f"{int(ov)}")
+                assert_same_image(where + " == full render", k, zk, ik,
+                                  z[row0:row0 + band], ids[row0:row0 + band])
+                if k in plain_views:
+                    zp, ip = plain(*args)
+                    err = max(err, assert_same_image(where + " == plain", k,
+                                                     zk, ik, zp, ip))
+    torch.cuda.synchronize()
+    kernel = "raster_dense" if use_dense else "raster_tile"
+    phase(f"phase 7: {kernel} on row bands at {label}: {len(cams)} views "
+          f"{width}x{height} in {BANDS} bands of "
+          f"{[height // n for n in BANDS]} rows at y_offset = row0, every "
+          f"band == the full render's rows (ids, depth bits), overflow 0; "
+          f"== plain on every band of views {list(plain_views)}")
+    return err
+
+
+def face_block_check(device):
+    """`scannet`'s triangles in 2 and 4 contiguous blocks, each rendered
+    alone through kernel B (49686 and 24843 faces: still dense) and merged
+    per pixel by (z bits, global id) minimum, the merge a `faces` axis does
+    with two MIN all-reduces: equal to the full render on every view."""
+    from semantic_meshes_torch import rasterize as rast
+
+    vertices, faces, cams = scene("scannet")
+    width, height = cams[0].resolution
+    fv = face_vertices(vertices, faces, device)
+    cap = dense_budget(vertices, faces, cams, device)
+    for k, cam in enumerate(cams):
+        ids, z, _ = rast.rasterize(vertices, faces, *cam_args(cam),
+                                   face_vertices=fv, height=height,
+                                   width=width, dense_e_cap=cap,
+                                   device=device)
+        for n in BANDS:
+            blk = len(faces) // n
+            if not rast.uses_dense(None, blk):
+                raise AssertionError(f"scannet block of {blk} faces is not "
+                                     "dense")
+            zbits, tris = [], []
+            for f in range(n):
+                sl = slice(f * blk, (f + 1) * blk)
+                t, zb, ov = rast.rasterize(
+                    vertices, faces[sl], *cam_args(cam), face_vertices=fv[sl],
+                    height=height, width=width, dense_e_cap=cap,
+                    device=device)
+                if int(ov):
+                    raise AssertionError(f"scannet view {k} block {f} of "
+                                         f"{n}: overflow {int(ov)}")
+                zbits.append(zb.view(torch.int32))
+                tris.append(torch.where(t >= 0, t + f * blk, NO_ID))
+            zbits = torch.stack(zbits)
+            zmin = zbits.amin(0)
+            win = torch.where(zbits == zmin, torch.stack(tris), NO_ID).amin(0)
+            win = torch.where(win < NO_ID, win, -1)
+            if not (torch.equal(win, ids)
+                    and torch.equal(zmin, z.view(torch.int32))):
+                bad = int((win != ids).sum())
+                raise AssertionError(f"scannet view {k}, {n} face blocks: "
+                                     f"{bad} merged ids differ from the full "
+                                     "render")
+    phase(f"phase 7: scannet in {BANDS} face blocks of "
+          f"{[len(faces) // n for n in BANDS]} triangles (raster_dense "
+          f"each): merged by (z bits, global id) == the full render on all "
+          f"{len(cams)} views, overflow 0")
+
+
+def sharded_inputs(preset, device, indoor=False, lens=False, texels=False):
+    """A sharded case's global inputs on `device` (the same on every rank:
+    the scene from the preset, probabilities from SEED on the card), the
+    keywords of make_sharded_fuse, and the one-card fusion to compare
+    with: fuse_views, or fuse_views_texels, under
+    plan_fuse(allow_split=False) (a sharded fuse has no face remap).
+    indoor: the cameras inside the room, clip_near; lens: SIMPLE_RADIAL
+    on every view, one physical camera (shared_lens); texels: the texel
+    renderer's tables at TPP[preset]."""
+    import semantic_meshes_torch as smt
+
+    _, n_views, width, height, classes = SCENES[preset]
+    vertices, faces, cams = (indoor_scene if indoor else scene)(preset)
+    if lens:
+        cams = with_lenses(cams, [RADIAL_SCANNET] * n_views)
+    probs = device_probs(n_views, height, width, classes, device)
+    rot, trans, fl, pp = smt.data.stack_cameras(cams)
+    dists = smt.data.stack_distortions(cams) if lens else None
+    P = len(faces)
+    if texels:
+        r = smt.render.texels(SimpleNamespace(vertices=vertices, faces=faces),
+                              cams, TPP[preset], device=device)
+        vertices, faces, P = r.vertices, r.faces, r.getPrimitivesNum()
+    plan = smt.distributed.plan_fuse(
+        vertices, faces, rot, trans, fl, pp, height=height, width=width,
+        clip_near=indoor, distortions=dists, allow_split=False,
+        device=device)
+    kw = dict(num_primitives=P, aggregator="sum", height=height, width=width,
+              clip_near=indoor, dense_e_cap=plan.dense_e_cap)
+    args = [vertices, faces, rot, trans, fl, pp, probs, IEW]
+    if lens:
+        kw.update(with_distortion=True, shared_lens=True)
+        args.append(dists)
+    if texels:
+        kw["texel_params"] = (r.resolutions, r.first_texel_index)
+
+        def one_card():
+            return smt.distributed.fuse_views_texels(
+                vertices, faces, r.resolutions, r.first_texel_index, rot,
+                trans, fl, pp, probs, IEW, num_primitives=P,
+                aggregator="sum", height=height, width=width,
+                clip_near=indoor, dense_e_cap=plan.dense_e_cap,
+                device=device)
+    else:
+        def one_card():
+            return smt.distributed.fuse_views(
+                vertices, faces, rot, trans, fl, pp, probs, IEW,
+                distortions=dists, shared_lens=lens, num_primitives=P,
+                aggregator="sum", height=height, width=width,
+                clip_near=indoor, dense_e_cap=plan.dense_e_cap,
+                device=device)
+    return args, kw, one_card
+
+
+def world_of_one(device):
+    """make_sharded_fuse at `scannet` in an NCCL world of one, layout (1,
+    1): every collective is over one rank and skipped, so the fuse equals
+    fuse_views bit for bit; overflow 0; raster_dense once per view. Both
+    batches timed in turns (host clock around work that ends in a
+    synchronize). Returns raster_dense's launches."""
+    import torch.distributed as dist
+
+    import semantic_meshes_torch as smt
+
+    args, kw, one_card = sharded_inputs("scannet", device)
+    smt.distributed.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                                         device=device)
+    try:
+        mesh = smt.distributed.make_device_mesh(device=device)
+        log = []
+        fuse = smt.distributed.make_sharded_fuse(mesh, collectives=log, **kw)
+        ref, ref_ov = one_card()
+        reset_launches()
+        acc, ov = fuse(*args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        log = list(log)  # one batch's collectives
+        if not torch.equal(acc, ref) or int(ov) != int(ref_ov) or int(ov):
+            raise AssertionError(
+                "world of one != fuse_views (max |err| "
+                f"{float((acc - ref).abs().max())}, overflow {int(ov)})")
+        if not log or not all(c.skipped for c in log):
+            raise AssertionError(f"world of one moved data: {log}")
+        expect_launches("scannet world of one", launches, "raster_dense",
+                        len(args[2]))
+        fns = {"sharded": lambda: fuse(*args), "fuse_views": one_card}
+        times = {name: [] for name in fns}  # both ran once above: warm
+        for name in ("sharded", "fuse_views", "fuse_views", "sharded") * 3:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fns[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        dist.destroy_process_group()
+    med = {k: statistics.median(v) for k, v in times.items()}
+    phase(f"phase 7: make_sharded_fuse in an NCCL world of one at scannet "
+          f"(1, 1): == fuse_views bit for bit, overflow 0, "
+          f"{len(log)} collectives all skipped, launches {launches}; batch "
+          f"{med['sharded']:.6f} ms against fuse_views {med['fuse_views']:.6f}"
+          f" ms in turns (ratio {med['sharded'] / med['fuse_views']:.6f})")
+    return launches["raster_dense"]
+
+
+def sharded_cases(n):
+    """(label, preset, layout, sharded_inputs options, make_sharded_fuse
+    options) of the multi-card part for n cards; a layout needs n even
+    where it halves n."""
+    cases = [
+        ("scannet views", "scannet", (n, 1), {}, {}),
+        ("scannet views + shard_primitives", "scannet", (n, 1), {},
+         {"shard_primitives": True}),
+        ("large views x pixels", "large", (n // 2, 2), {}, {}),
+        ("scannet faces", "scannet", (1, 1, n), {}, {}),
+        ("scannet views x faces", "scannet", (n // 2, 1, 2), {}, {}),
+        ("texels01 views x faces", "texels01", (n // 2, 1, 2),
+         {"texels": True}, {}),
+        ("scannet indoor + clip views", "scannet", (n, 1), {"indoor": True},
+         {}),
+        ("scannet + SIMPLE_RADIAL views", "scannet", (n, 1), {"lens": True},
+         {}),
+    ]
+    return [c for c in cases if int(np.prod(c[2])) == n]
+
+
+def nvlink_bytes_s():
+    """(bytes/s each way of card 0's NVLink links, source): the sum of the
+    link speeds `nvidia-smi nvlink -s` lists, else the data sheet's."""
+    import re
+
+    try:
+        out = subprocess.run(["nvidia-smi", "nvlink", "-s", "-i", "0"],
+                             capture_output=True, text=True, timeout=60)
+        speeds = [float(x) for x in re.findall(r"([0-9.]+) GB/s", out.stdout)]
+    except (OSError, subprocess.SubprocessError):
+        speeds = []
+    if speeds:
+        return sum(speeds) * 1e9, (f"nvidia-smi nvlink -s: {len(speeds)} "
+                                   f"links of {speeds[0]} GB/s")
+    return NVLINK_BYTES_S, "NVIDIA data sheet (nvidia-smi listed no links)"
+
+
+def collective_bound_ms(op, numel, k, bw):
+    """Least time of a collective over k ranks: the bytes a rank sends
+    (ring all-reduce 2 (k - 1) / k of the tensor, reduce-scatter
+    (k - 1) / k of its input) over the link bandwidth each way."""
+    share = 2 * (k - 1) / k if op.startswith("all_reduce") else (k - 1) / k
+    return share * numel * 4 / bw * 1e3
+
+
+def time_collectives(mesh, log, device, reps=10):
+    """Each distinct collective of one batch's record, on tensors of its
+    shape and dtype, timed with CUDA events (median of `reps`) on every
+    rank at once; [(op, axes, shape, per batch count, ms, group size)]."""
+    import collections
+
+    import semantic_meshes_torch as smt
+
+    counts = collections.Counter(
+        (c.op, c.axes, c.in_shape) for c in log if not c.skipped)
+    out = []
+    for (op, axes, shape), count in sorted(counts.items()):
+        axis = smt.distributed.MeshAxis(mesh, axes)
+        dtype = torch.int32 if op.endswith("min") else torch.float32
+        t = torch.ones(shape, dtype=dtype, device=device)
+
+        def run():
+            if op == "reduce_scatter":
+                return axis.reduce_scatter(t)
+            return axis.all_reduce(t.clone(), op[len("all_reduce_"):])
+
+        ms = cuda_time_ms(run, reps)
+        out.append((op, axes, shape, count, ms, axis.size))
+    return out
+
+
+def sharded_rank(rank, n, port, out_dir, bw):
+    """One NCCL rank (card `rank`) of the multi-card part: every case of
+    sharded_cases(n) twice (bit-identical), against the one-card fusion
+    on this rank's card (its rows of it under shard_primitives), timed in
+    turns with it on rank 0; rank 0 also traces one sharded batch and
+    times each collective. Writes rank<rank>.json (or rank<rank>.err)."""
+    import traceback
+
+    sys.path.insert(0, HERE)
+    try:
+        result = sharded_rank_cases(rank, n, port, bw)
+    except BaseException:
+        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as fh:
+            fh.write(traceback.format_exc())
+        raise
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(result, fh)
+
+
+def sharded_rank_cases(rank, n, port, bw):
+    import torch.distributed as dist
+
+    import semantic_meshes_torch as smt
+
+    device = torch.device("cuda", rank)
+    smt.distributed.initialize_multihost(f"127.0.0.1:{port}", n, rank,
+                                         device=device)
+    meshes, results = {}, []
+    for label, preset, layout, opts, fuse_opts in sharded_cases(n):
+        args, kw, one_card = sharded_inputs(preset, device, **opts)
+        kw.update(fuse_opts)
+        if layout not in meshes:
+            meshes[layout] = smt.distributed.make_device_mesh(*layout,
+                                                              device=device)
+        mesh = meshes[layout]
+        log = []
+        fuse = smt.distributed.make_sharded_fuse(mesh, collectives=log, **kw)
+        ref, ref_ov = one_card()
+        reset_launches()
+        acc, ov = fuse(*args)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        batch_log = list(log)
+        acc2, ov2 = fuse(*args)
+        if fuse_opts.get("shard_primitives"):
+            rows = acc.shape[0]
+            ref = ref[rank * rows:(rank + 1) * rows]
+        ok = bool(torch.allclose(acc, ref, rtol=SHARDED_RTOL,
+                                 atol=SHARDED_ATOL))
+        entry = {
+            "label": label, "preset": preset, "layout": list(layout),
+            "ok": ok and int(ov) == int(ref_ov),
+            "bit_identical": bool(torch.equal(acc, acc2))
+            and int(ov) == int(ov2),
+            "max_abs_err": float((acc - ref).abs().max()),
+            "bit_equal_to_one_card": bool(torch.equal(acc, ref)),
+            "overflow": int(ov), "one_card_overflow": int(ref_ov),
+            "launches": launches, "rows": int(acc.shape[0]),
+            "primitives": kw["num_primitives"],
+        }
+        times = {"sharded": [], "one card": []}
+        for name in ("sharded", "one card", "one card", "sharded") * 3:
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if name == "sharded":
+                fuse(*args)
+            elif rank == 0:
+                one_card()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            dist.barrier()
+        entry["ms"] = {k: statistics.median(v) for k, v in times.items()}
+        entry["busy_ms"] = traced_busy_ms(rank, lambda: fuse(*args))
+        entry["collectives"] = [
+            {"op": op, "axes": list(axes), "shape": list(shape),
+             "per_batch": count, "ms": ms, "ranks": k,
+             "bound_ms": collective_bound_ms(op, int(np.prod(shape)), k,
+                                             bw)}
+            for op, axes, shape, count, ms, k in time_collectives(
+                mesh, batch_log, device)]
+        entry["skipped"] = sum(c.skipped for c in batch_log)
+        results.append(entry)
+        del args, ref, acc, acc2, one_card
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return {"rank": rank, "device": torch.cuda.get_device_name(device),
+            "cases": results}
+
+
+def traced_busy_ms(rank, fn):
+    """The device busy time of one sharded batch traced on rank 0 (the
+    sum of its device events, NCCL's kernels included, and without
+    them); the other ranks run the batch untraced. None on other ranks
+    and where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    prof = None
+    if rank == 0:
+        try:
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            prof.start()
+        except (RuntimeError, AssertionError):  # no device activity to trace
+            prof = None
+    fn()  # every rank, outside any try: its collectives need them all
+    torch.cuda.synchronize()
+    if prof is None:
+        return None
+    try:
+        prof.stop()
+        kernels = device_times(prof)
+    except (RuntimeError, AttributeError):
+        return None
+    if not kernels:
+        return None
+    nccl = sum(ms for name, (ms, _) in kernels.items()
+               if "nccl" in name.lower())
+    total = sum(ms for ms, _ in kernels.values())
+    return {"all": total, "without_nccl": total - nccl}
+
+
+def multi_card(card, n):
+    """The multi-card part: one NCCL rank per card (spawned processes, the
+    kernels already built by phase 2), every case of sharded_cases(n).
+    Prints a phase line per case and returns the launches of each path,
+    summed over the ranks."""
+    import multiprocessing
+
+    bw, bw_source = nvlink_bytes_s()
+    phase(f"phase 7: {n} cards, one NCCL rank each: "
+          f"{'; '.join(card_lines())}; NVLink {bw / 1e9:.3f} GB/s each way "
+          f"({bw_source})")
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    with tempfile.TemporaryDirectory() as out_dir:
+        procs = [ctx.Process(target=sharded_rank,
+                             args=(r, n, port, out_dir, bw))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + RANK_DEADLINE_S
+        try:
+            while any(p.is_alive() for p in procs):
+                failed = [r for r, p in enumerate(procs)
+                          if p.exitcode not in (None, 0)]
+                if failed or time.monotonic() > deadline:
+                    break
+                time.sleep(1.0)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(timeout=60)
+        errors = []
+        for r in range(n):
+            err = os.path.join(out_dir, f"rank{r}.err")
+            if os.path.exists(err):
+                with open(err) as fh:
+                    errors.append(f"rank {r}:\n{fh.read()}")
+        if errors or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(
+                "multi-card ranks failed (exit codes "
+                f"{[p.exitcode for p in procs]}):\n" + "\n".join(errors))
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    by_path = {"raster_tile": {}, "raster_dense": {}}
+    for i, entry in enumerate(ranks[0]["cases"]):
+        each = [rk["cases"][i] for rk in ranks]
+        bad = [e for e in each if not (e["ok"] and e["bit_identical"])]
+        if bad:
+            raise AssertionError(f"{entry['label']} {entry['layout']}: {bad}")
+        layout = tuple(entry["layout"])
+        path = f"{entry['label']} {layout}"
+        for kernel in by_path:
+            total = sum(e["launches"][kernel] for e in each)
+            if total:
+                by_path[kernel][path] = total
+        _, views, width, height, _ = SCENES[entry["preset"]]
+        ms = entry["ms"]
+        mpix = {k: views * width * height / 1e6 / (v / 1e3)
+                for k, v in ms.items()}
+        busy = entry["busy_ms"]
+        idle = ("not measured" if busy is None else
+                f"{1 - busy['all'] / ms['sharded']:.6f} "
+                f"({1 - busy['without_nccl'] / ms['sharded']:.6f} counting "
+                "NCCL's kernels as idle)")
+        colls = "; ".join(
+            f"{c['op']} over {'x'.join(c['axes'])} ({c['ranks']} ranks) of "
+            f"{tuple(c['shape'])} x{c['per_batch']}: {c['ms']:.6f} ms each, "
+            f"bound {c['bound_ms']:.6f}" for c in entry["collectives"])
+        phase(
+            f"phase 7 [{card}]: {path}: == one card (max |err| "
+            f"{max(e['max_abs_err'] for e in each):.3e}, bit-equal on "
+            f"{sum(e['bit_equal_to_one_card'] for e in each)} of {n} ranks), "
+            f"overflow {entry['overflow']} == {entry['one_card_overflow']}, "
+            f"two runs bit-identical on every rank, {entry['rows']} rows a "
+            f"rank of P {entry['primitives']}; batch {ms['sharded']:.6f} ms "
+            f"({mpix['sharded']:.2f} MPix/s) against one card "
+            f"{ms['one card']:.6f} ms ({mpix['one card']:.2f}) in turns, "
+            f"{ms['one card'] / ms['sharded']:.6f}x; rank 0 idle share "
+            f"{idle}; collectives a batch: {colls or 'none'} "
+            f"({entry['skipped']} over one rank, skipped); launches summed "
+            f"over ranks {[e['launches'] for e in each]}")
+        print(json.dumps({
+            "metric": "rasterize_fuse_throughput", "value": mpix["sharded"],
+            "unit": "MPix/s", "card": card,
+            "detail": {"preset": entry["preset"], "variant": path,
+                       "cards": n, "views": views,
+                       "resolution": [width, height],
+                       "one_card_mpix_s": mpix["one card"],
+                       "batch_ms": ms["sharded"],
+                       "one_card_batch_ms": ms["one card"],
+                       "busy_ms": busy, "collectives": entry["collectives"],
+                       "devices": [rk["device"] for rk in ranks]}}),
+              flush=True)
+    return by_path
+
+
+def multi_gpu(device, card):
+    """Phase 7. Returns (max |depth error| of raster_tile and raster_dense
+    against plain on bands, launches_by_path additions per kernel)."""
+    t7 = time.monotonic()
+    large_v, large_f, large_c = scene("large")
+    tile_err = band_check("large", large_v, large_f, large_c, device,
+                          range(len(large_c)))
+    # kernel A at heights that are no tile multiple: `default`'s mesh
+    # seen at `scannet`'s 1296x968 (bands of 484 and 242 rows)
+    default_v, default_f, _ = scene("default")
+    _, views, width, height, _ = SCENES["scannet"]
+    from semantic_meshes_torch import testing
+
+    cams = testing.make_ring_cameras(num_views=views, width=width,
+                                     height=height)
+    tile_err = max(tile_err, band_check("default mesh at 1296x968",
+                                        default_v, default_f, cams, device,
+                                        range(views)))
+    scannet_v, scannet_f, scannet_c = scene("scannet")
+    dense_err = band_check("scannet", scannet_v, scannet_f, scannet_c,
+                           device, range(2))
+    face_block_check(device)
+    by_path = {"raster_tile": {}, "raster_dense": {
+        "scannet sharded, NCCL world of one (1, 1)": world_of_one(device)}}
+    n = torch.cuda.device_count()
+    if n >= 2:
+        for kernel, paths in multi_card(card, n).items():
+            by_path[kernel].update(paths)
+    else:
+        phase("phase 7: the multi-card part did not run: this machine has "
+              f"{n} card (torch.cuda.device_count() == {n}), and NCCL puts "
+              "one rank on a card")
+    phase(f"phase 7 took {time.monotonic() - t7:.1f} s")
+    return tile_err, dense_err, by_path
+
+
 def parse_args():
     parser = argparse.ArgumentParser(
         description="Chip smoke run of semantic_meshes_torch on one card.")
+    parser.add_argument(
+        "--sharded-only", action="store_true",
+        help="run phases 1, 2 and 7 only (multi-GPU fusion: bands, face "
+             "blocks, the NCCL world of one and, with two or more cards, "
+             "one rank per card), for calls on several cards; prints no "
+             "kernel line")
     parser.add_argument(
         "--against", action="append", default=[], metavar="DIR",
         help="a checkout of an earlier commit (its semantic_meshes_torch/ "
@@ -2720,6 +3325,16 @@ def main():
                                                  or "Compiling" in ln)]
             phase(f"phase 2: built {name}{' of ' + label if label else ''}"
                   ": " + " | ".join(report))
+
+    if args.sharded_only:
+        multi_gpu(device, card)
+        phase(f"done in {time.monotonic() - t0:.1f} s")
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return
 
     tile_err = tile_vs_plain(device)
     dense_err = max(dense_vs_plain(device), texel_dense_vs_plain(device))
@@ -2808,6 +3423,11 @@ def main():
     del indoor, ctx, fv
 
     by_path["raster_dense"]["scannet eval"] = scannet_eval(device, card)
+    band_tile_err, band_dense_err, sharded = multi_gpu(device, card)
+    tile_err, dense_err = max(tile_err, band_tile_err), max(dense_err,
+                                                            band_dense_err)
+    for kernel, paths in sharded.items():
+        by_path[kernel].update(paths)
 
     def indoor_row(path, row):
         keys = ("ms", "launched_ms", "plain_ms", "bound_ms", "bound_by",

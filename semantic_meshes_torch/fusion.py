@@ -125,7 +125,7 @@ def _pixel_values(probs_flat, base_w, aggregator):
 
 
 def _accumulate_view(prim, probs, weights, images_equal_weight, *,
-                     num_primitives, aggregator):
+                     num_primitives, aggregator, group=None):
     """Fusion contribution (P, C) of one view as ONE segment sum.
 
     Every aggregator's accumulation is linear in the pixel weight, and the
@@ -135,6 +135,10 @@ def _accumulate_view(prim, probs, weights, images_equal_weight, *,
       delta[p] = (iew / count[p] + (1 - iew)) * S[p]
     needs one segment sum over (values | count column).
     prim: signed integer ids (any shape); probs: prim.shape + (C,).
+    group: None, or the distributed.MeshAxis the image's rows are split
+    over: S and the counts are summed over its ranks before the mix, since
+    the counts need the whole image (the JAX package's psum over
+    `pixels`).
     """
     P = num_primitives
     prim_flat = prim.reshape(-1)
@@ -155,6 +159,8 @@ def _accumulate_view(prim, probs, weights, images_equal_weight, *,
     # trailing column: pixels_per_face over ALL in-range pixels (Mesh.h:90-93)
     data = torch.cat([values, in_range.to(torch.float32)[:, None]], dim=1)
     seg = ops.segment_sum(data, idx, P)
+    if group is not None:
+        seg = group.all_reduce(seg)
     counts = torch.clamp(seg[:, C], min=1.0)
     # a true division (python's `iew / tensor` is reciprocal-then-multiply)
     mix = torch.div(torch.full_like(counts, images_equal_weight), counts) + (

@@ -31,6 +31,10 @@ def test_import_pulls_in_no_jax():
         "import semantic_meshes_torch.data2.scannet\n"
         "from semantic_meshes_torch import (checkpoint, metrics, probs_io,\n"
         "                                   profiling)\n"
+        "from semantic_meshes_torch.distributed import (\n"
+        "    MeshAxis, initialize_multihost, make_device_mesh,\n"
+        "    make_sharded_fuse, merge_face_blocks, view_accumulate)\n"
+        "import torch.distributed.device_mesh\n"
         "semantic_meshes_torch.native.load()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
