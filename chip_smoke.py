@@ -2,6 +2,7 @@
 """Chip smoke run of semantic_meshes_torch on one CUDA card (sm_90a).
 
     python3 chip_smoke.py [--against DIR ...] [--sharded-only]
+                          [--models-only]
 
 Drives the port's main paths through their public entry points, at six
 of bench.py's presets, their distorted variants and their indoor
@@ -153,7 +154,29 @@ each phase prints a line and raises on failure:
    ranks). --sharded-only runs phases 1, 2 and 7 alone (for calls on
    several cards) and prints no kernel line.
 
-No earlier path was cut to make room for phase 7.
+8. the bundled segmentation predictors (models.segmentation) at full
+   width, nothing cut: the resizes card == CPU (the antialiased bilinear
+   shrinks 968x1296 -> 480x640 and 1024x2048 -> 512x512, the upsamples
+   back, nearest 2x bit for bit); a ConvBlock(256, 512), the float32
+   head (no TF32) and UNet(64..512) at 256x256 card == CPU within the
+   CPU tests' bounds; bench.py's `e2e` preset (UNet(64..512), 19
+   classes, 4 ring views of 2048x1024 uint8 from SEED, cube s=64, texels
+   at 0.1 per pixel, fuse_views_texels(predict_fn=softmax(model(img /
+   255))), sum): overflow 0, raster_dense once a view and raster_tile
+   never, == the fusion of the stacked predictions, two runs
+   bit-identical, e2e_image_time as bench.py computes it (min of 5
+   batches / views, and the median), the predictor alone, its
+   convolutions' FLOPs and share of the bf16 peak, one traced batch and
+   the peak device memory; the ScanNet eval's RGBD predictor (40
+   classes, input 480x640) at `scannet` on seeded colour and the port's
+   own render in mm at 640x480, fuse_views(probs=(colors, depths),
+   predict_fn=) == the per-view predict -> render -> add path, overflow
+   0; the Cityscapes demo's PSPNet (input 512x512, sliding (512, 512),
+   scales 0.75, 1.0, 1.25) on one 2048x1024 image, and card == CPU on a
+   256x512 crop. `launches_by_path` gains "e2e" and "scannet RGBD eval".
+   --models-only runs phases 1, 2 and 8 alone and prints no kernel line.
+
+No earlier path was cut to make room for phases 7 and 8.
 
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
@@ -2067,13 +2090,14 @@ def dense_kernel_row(label, inputs, against, card):
     return out
 
 
-def device_busy(label, entry, fn, batch_ms, card):
+def device_busy(label, entry, fn, batch_ms, card, tag="phase 5"):
     """One traced batch: the device's busy time (sum of the kernels' own
     device times, from torch.profiler), its share of the untraced batch
     time, and the kernels that take the most. Diagnostic only: a profiler
     that sees no device time reports "not measured". The trace records
     device activity alone: host ops would add an event to each of a
-    distorted batch's ~10^5 launches, and the busy time reads none."""
+    distorted batch's ~10^5 launches, and the busy time reads none. tag:
+    the phase that prints the line."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2086,24 +2110,24 @@ def device_busy(label, entry, fn, batch_ms, card):
     fn()
     torch.cuda.synchronize()
     if prof is None:
-        phase(f"phase 5 [{card}]: {label} device busy share: not measured "
+        phase(f"{tag} [{card}]: {label} device busy share: not measured "
               f"({why})")
         return
     try:
         prof.stop()
         kernels = device_times(prof)
     except (RuntimeError, AttributeError) as e:
-        phase(f"phase 5 [{card}]: {label} device busy share: not measured "
+        phase(f"{tag} [{card}]: {label} device busy share: not measured "
               f"({e})")
         return
     if not kernels:
-        phase(f"phase 5 [{card}]: {label} device busy share: not measured "
+        phase(f"{tag} [{card}]: {label} device busy share: not measured "
               "(the profiler saw no device time)")
         return
     busy_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:8]
     phase(
-        f"phase 5 [{card}]: {label}, one traced {entry} batch: "
+        f"{tag} [{card}]: {label}, one traced {entry} batch: "
         f"device busy {busy_ms:.6f} ms of the untraced {batch_ms:.6f} ms "
         f"(idle share {1 - busy_ms / batch_ms:.6f}); top device time: "
         + "; ".join(f"{name[:60]} {ms:.6f} ms x{n}"
@@ -3273,6 +3297,477 @@ def multi_gpu(device, card):
     return tile_err, dense_err, by_path
 
 
+# ---------------------------------------------------------------- phase 8
+# the bundled segmentation predictors (models.segmentation) at full width:
+# bench.py's `e2e` preset (bench.py:317-400: UNet(64..512), 19 classes,
+# Cityscapes' 2048x1024, texels at 0.1 per pixel on the cube s=64, 4 ring
+# views, fuse_views_texels(predict_fn=), sum), the ScanNet eval's RGBD
+# predictor (eval_scannet.py:222-239: 40 classes, input 480x640) at
+# `scannet`, and the Cityscapes demo's PSPNet with sliding windows and
+# scales (colorize_cityscapes_mesh.py:160-170, at input 512x512)
+MODEL_WIDTHS = (64, 128, 256, 512)
+E2E = dict(subdivisions=64, views=4, width=2048, height=1024, classes=19,
+           tpp=0.1)
+PSP_SCALES = (0.75, 1.0, 1.25)
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+# card == CPU bounds. Resizes: float32 of values in [0, 1], separable
+# sums of a few weights (about 1e-6 is 8 ulp of 1.0). Models: both sides
+# run the port's code and round the same bf16 convolutions, but cuDNN and
+# oneDNN add in another order, so an activation that lands on a bf16
+# rounding boundary moves by 2^-8. The bounds hold ~3x over the H100's
+# readings at seed 0 (PERF.md): UNet(64..512) at 256x256 max |dprob|
+# 0.0074, mean 3.0e-4, equal argmax 0.988; PSPNet 0.0015, 9.1e-5, 0.994;
+# ConvBlock(256, 512) max |d| / max |x| 5.7e-3, mean 1.5e-4. (The CPU
+# tests' looser bounds, tests/_torch_models.py, are between the JAX
+# package and the port.) The float32 head: 64-term sums in float32 (TF32
+# would show ~1e-3).
+RESIZE_ATOL = 2e-6
+PROB_ATOL = 0.02
+PROB_MEAN = 1e-3
+ARGMAX_SHARE = 0.98
+BLOCK_RTOL = 0.02  # max |d| / max |x| of a ConvBlock's output
+BLOCK_MEAN = 5e-4  # mean |d| / mean |x|
+HEAD_RTOL = 1e-5
+
+
+def probs_gap(label, got, want):
+    """max and mean |dprob| and the share of equal argmax of card (got)
+    and CPU (want) probabilities; raises past the bounds."""
+    got = got.float().cpu()
+    err = (got - want).abs()
+    same = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    gap = dict(max=float(err.max()), mean=float(err.mean()), argmax=same)
+    if (gap["max"] > PROB_ATOL or gap["mean"] > PROB_MEAN
+            or same < ARGMAX_SHARE):
+        raise AssertionError(f"{label}: card vs CPU {gap}, bounds "
+                             f"{PROB_ATOL}, {PROB_MEAN}, {ARGMAX_SHARE}")
+    return gap
+
+
+def conv_flops(model, *inputs):
+    """Operations of every convolution of one forward, from the shapes
+    (2 x output elements x in channels x kernel area), counted by hooks."""
+    from semantic_meshes_torch.models import segmentation
+
+    total = [0]
+
+    def count(conv, _args, out):
+        cout, cin, kh, kw = conv.weight.shape
+        total[0] += 2 * out.numel() * cin * kh * kw
+
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, segmentation.Conv)]
+    try:
+        with torch.inference_mode():
+            model(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def resizes_card_vs_cpu(device, card):
+    """The predictors' resizes on the card against the CPU: the
+    antialiased bilinear shrinks (ScanNet's 968x1296 colour to 480x640,
+    Cityscapes' 1024x2048 to 512x512), the upsamples back (of 40 and 19
+    classes of probabilities) and the UNet's 2x nearest."""
+    from semantic_meshes_torch.models import segmentation
+
+    rng = np.random.default_rng(SEED)
+    cases = [("shrink 968x1296 -> 480x640", (968, 1296, 3), (480, 640),
+              "bilinear"),
+             ("shrink 1024x2048 -> 512x512", (1024, 2048, 3), (512, 512),
+              "bilinear"),
+             ("grow 480x640 -> 968x1296, 40 classes", (480, 640, 40),
+              (968, 1296), "bilinear"),
+             ("grow 512x512 -> 1024x2048, 19 classes", (512, 512, 19),
+              (1024, 2048), "bilinear"),
+             ("nearest 2x 512x1024, 64 channels", (512, 1024, 64),
+              (1024, 2048), "nearest")]
+    out = []
+    for label, shape, hw, method in cases:
+        x = torch.from_numpy(rng.random((1,) + shape, dtype=np.float32))
+        want = segmentation.resize(x, hw, method)
+        xd = x.to(device)
+        got = segmentation.resize(xd, hw, method)
+        err = float((got.cpu() - want).abs().max())
+        if err > RESIZE_ATOL or (method == "nearest" and err != 0):
+            raise AssertionError(f"resize {label}: card vs CPU {err}")
+        ms = cuda_time_ms(lambda: segmentation.resize(xd, hw, method), 10)
+        out.append(f"{label}: max |err| {err:.3e}, {ms:.6f} ms")
+    phase(f"phase 8 [{card}]: resizes card == CPU (bound {RESIZE_ATOL}; "
+          "nearest bit for bit): " + "; ".join(out))
+
+
+def models_card_vs_cpu(device, card):
+    """A full-width ConvBlock (the bottleneck's 256 -> 512 at a 512x512
+    input's 64x64), the float32 head, and UNet(64..512) with 19 classes at
+    256x256, each from seed 0, on the card against the CPU."""
+    from semantic_meshes_torch.models import segmentation
+
+    rng = np.random.default_rng(SEED)
+    block = segmentation.init_(segmentation.ConvBlock(256, 512), SEED).eval()
+    x = torch.from_numpy(rng.random((1, 256, 64, 64), dtype=np.float32))
+    with torch.inference_mode():
+        want = block(x)
+        got = block.to(device)(x.to(device).contiguous(
+            memory_format=torch.channels_last)).cpu()
+    d = (got - want).abs()
+    rel = float(d.max() / want.abs().max())
+    mean = float(d.mean() / want.abs().mean())
+    if rel > BLOCK_RTOL or mean > BLOCK_MEAN:
+        raise AssertionError(f"ConvBlock(256, 512): card vs CPU max rel "
+                             f"{rel}, mean rel {mean}")
+    head = segmentation.init_(segmentation.Conv(64, 19, 1, bf16=False), SEED)
+    x = torch.from_numpy(rng.standard_normal((1, 64, 256, 256),
+                                             dtype=np.float32))
+    with torch.inference_mode():
+        want_h = head(x)
+        got_h = head.to(device)(x.to(device)).cpu()
+        before = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = torch.nn.functional.conv2d(
+                x.to(device), head.weight, head.bias).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = before
+    scale = float(want_h.abs().max())
+    head_err = float((got_h - want_h).abs().max()) / scale
+    tf32_err = float((tf32 - want_h).abs().max()) / scale
+    if head_err > HEAD_RTOL:
+        raise AssertionError(f"float32 head: card vs CPU {head_err} "
+                             f"(TF32 would give {tf32_err})")
+    model = segmentation.init_(segmentation.UNet(19, MODEL_WIDTHS),
+                               SEED).eval()
+    img = torch.from_numpy(rng.random((1, 256, 256, 3), dtype=np.float32))
+    with torch.inference_mode():
+        want_p = torch.softmax(model(img), -1)
+        model = model.to(device).to(memory_format=torch.channels_last)
+        got_p = torch.softmax(model(img.to(device)), -1)
+    gap = probs_gap("UNet(64..512) at 256x256", got_p, want_p)
+    phase(f"phase 8 [{card}]: ConvBlock(256, 512) at 64x64 card vs CPU "
+          f"max |d| / max |x| {rel:.3e} (bound {BLOCK_RTOL}), mean "
+          f"{mean:.3e} (bound {BLOCK_MEAN}); float32 head 64 -> 19 at "
+          f"256x256 {head_err:.3e} (bound {HEAD_RTOL}; with TF32 "
+          f"{tf32_err:.3e}); UNet(64..512), 19 classes at 256x256: max "
+          f"|dprob| {gap['max']:.6f}, mean {gap['mean']:.3e}, equal argmax "
+          f"{gap['argmax']:.6f} (bounds {PROB_ATOL}, {PROB_MEAN}, "
+          f"{ARGMAX_SHARE})")
+
+
+def groupnorm_times(device, card):
+    """The GroupNorm of the UNet's first stage at 2048x1024 (64 channels,
+    32 groups, float32) three ways, in turns: the port's (channels_last,
+    reduced in place), PyTorch's group_norm on NCHW, and group_norm on
+    channels_last (which copies to NCHW first), against the bound of
+    reading and writing the tensor once."""
+    import torch.nn.functional as F
+
+    from semantic_meshes_torch.models import segmentation
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    x = torch.randn((1, 64, 1024, 2048), generator=gen, device=device)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    norm = segmentation.GroupNorm(64).to(device)
+    with torch.no_grad():
+        norm.weight.normal_(1.0, 0.1, generator=gen)
+        norm.bias.normal_(0.0, 0.1, generator=gen)
+
+    def plain(t):
+        return F.group_norm(t, norm.num_groups, norm.weight, norm.bias,
+                            norm.eps)
+
+    with torch.inference_mode():
+        want = plain(x)
+        err = float((norm(x_cl) - want).abs().max() / want.abs().max())
+        if err > 1e-5:
+            raise AssertionError(f"GroupNorm channels_last vs NCHW: {err}")
+        runs = {"port, channels_last": lambda: norm(x_cl),
+                "group_norm, NCHW": lambda: plain(x),
+                "group_norm, channels_last": lambda: plain(x_cl)}
+        times = {k: [] for k in runs}
+        for _ in range(3):
+            for k in list(runs) + list(runs)[::-1]:
+                times[k].append(cuda_time_ms(runs[k], reps=1, warmup=1))
+    bound = 2 * x.numel() * 4 / PEAK_BYTES_S * 1e3
+    phase(f"phase 8 [{card}]: GroupNorm(64) of (1, 64, 1024, 2048) float32, "
+          f"ms in turns (medians of 6): " + "; ".join(
+              f"{k} {statistics.median(v):.6f}" for k, v in times.items())
+          + f"; bound {bound:.6f} (bytes); port vs NCHW max |d| / max |y| "
+          f"{err:.3e}")
+
+
+def e2e_dense_vs_plain(renderer, cams, device):
+    """raster_dense against its plain version on every `e2e` view, on the
+    inputs the main path gives it: the texel renderer's reordered faces
+    at the default budget (fuse_views_texels is called without
+    dense_e_cap). Ids equal and depths bit-equal; overflow 0."""
+    from semantic_meshes_torch.rasterize import dense_kernel
+
+    for k, cam in enumerate(cams):
+        args, _, overflow = dense_view_inputs(renderer.face_vertices, cam,
+                                              None, device)
+        if args is None:
+            raise AssertionError("e2e: zero pair budget")
+        zk, ik = dense_kernel.resolve_dense_cuda(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        torch.cuda.synchronize()
+        if int(overflow) != 0:
+            raise AssertionError(f"e2e view {k}: overflow {int(overflow)}")
+        assert_same_image("e2e", k, zk, ik, zp, ip)
+        del args, zk, ik, zp, ip
+    return len(cams)
+
+
+def e2e_preset(device, card, workdir):
+    """bench.py's e2e preset through the port: texels, the UNet's softmax
+    as fuse_views_texels' predict_fn on raw uint8 views, sum fusion.
+    Returns raster_dense's launches in the run the counters read."""
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch.models import segmentation
+
+    W, H, C, n = E2E["width"], E2E["height"], E2E["classes"], E2E["views"]
+    vertices, faces = smt.testing.make_cube(subdivisions=E2E["subdivisions"])
+    path = os.path.join(workdir, "e2e.ply")
+    smt.io.ply.write_mesh(path, vertices, faces)
+    mesh = smt.data.Ply(path)
+    cams = smt.testing.make_ring_cameras(num_views=n, width=W, height=H)
+    rng = np.random.default_rng(SEED)
+    imgs = torch.from_numpy(rng.integers(0, 255, (n, H, W, 3),
+                                         np.uint8)).to(device)
+    rot, trans, fl, pp = smt.data.stack_cameras(cams)
+
+    reset_launches()
+    renderer = smt.render.texels(mesh, cams, E2E["tpp"], bucket=True,
+                                 device=device)
+    P = renderer.getPrimitivesNum()
+    model = segmentation.load_predictor(classes=C, input_hw=(H, W),
+                                        device=device).model
+
+    @torch.inference_mode()
+    def predict_fn(img):
+        x = img.to(torch.float32) / 255.0
+        return torch.softmax(model(x[None])[0], dim=-1)
+
+    def fuse(probs, predict=None):
+        return smt.distributed.fuse_views_texels(
+            renderer.vertices, renderer.faces, renderer.resolutions,
+            renderer.first_texel_index, rot, trans, fl, pp, probs, IEW,
+            num_primitives=P, aggregator="sum", height=H, width=W,
+            predict_fn=predict, device=device)
+
+    def run_batch():
+        return fuse(imgs, predict_fn)
+
+    acc, overflow = run_batch()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != {"raster_tile": 0, "raster_dense": n}:
+        raise AssertionError(f"e2e: launches {launches}, expected "
+                             f"raster_dense once a view")
+    if int(overflow) != 0:
+        raise AssertionError(f"e2e: overflow {int(overflow)}")
+    if tuple(acc.shape) != (P, C) or not torch.isfinite(acc).all():
+        raise AssertionError(f"e2e: accumulator {tuple(acc.shape)}")
+    # outside the counted run: the kernel against its plain version
+    checked = e2e_dense_vs_plain(renderer, cams, device)
+    seen = float((acc.abs().sum(-1) > 0).float().mean())
+    probs = torch.stack([predict_fn(img) for img in imgs])
+    sums = probs.sum(-1)
+    if not torch.allclose(sums, torch.ones_like(sums), atol=1e-3):
+        raise AssertionError("e2e: predictions do not sum to 1")
+    pre, pre_overflow = fuse(probs)
+    same = torch.equal(acc, pre)
+    if not same:
+        err = float((acc - pre).abs().max())
+        if not torch.allclose(acc, pre, rtol=2e-5, atol=0):
+            raise AssertionError(f"e2e: predict_fn != precomputed probs "
+                                 f"(max |err| {err})")
+    del probs, pre
+    again, _ = run_batch()
+    if not torch.equal(acc, again):
+        raise AssertionError("e2e: two runs are not bit-identical")
+    del again
+
+    # bench.py's e2e_image_time: min over timed batches / views, with one
+    # scalar read back per batch
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        acc, _ = run_batch()
+        acc[0, 0].item()
+        times.append(time.perf_counter() - t0)
+    image_ms = min(times) / n * 1e3
+    median_ms = statistics.median(times) / n * 1e3
+    predict_ms = cuda_time_ms(lambda: predict_fn(imgs[0]), reps=5)
+    flops = conv_flops(model, imgs[:1].to(torch.float32) / 255.0)
+    share = flops / (predict_ms / 1e3) / PEAK_BF16_FLOPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    run_batch()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    batch_ms = statistics.median(times) * 1e3
+    phase(f"phase 8 [{card}]: e2e ok: {n} views {W}x{H}, cube s="
+          f"{E2E['subdivisions']} ({len(faces)} triangles), {P} texels, "
+          f"UNet{MODEL_WIDTHS}, {C} classes, overflow 0, launches "
+          f"{launches} (raster_dense once a view), raster_dense == plain on "
+          f"all {checked} views (ids equal, depths bit-equal, default "
+          f"budget), predict_fn == the fusion "
+          f"of the stacked predictions (bit-equal: {same}), two runs "
+          f"bit-identical, {seen:.6f} of the texels seen; e2e_image_time "
+          f"{image_ms:.6f} ms/image (min of 5 batches / views; median "
+          f"{median_ms:.6f}), the predictor alone {predict_ms:.6f} ms/image "
+          f"(CUDA events), its convolutions {flops / 1e12:.6f} TFLOP/image "
+          f"= {flops / (predict_ms / 1e3) / 1e12:.3f} TFLOP/s, "
+          f"{share:.6f} of the {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s bf16 "
+          f"peak; peak device memory {peak_gb:.3f} GB a batch")
+    device_busy("e2e", "fuse_views_texels(predict_fn=)", run_batch,
+                batch_ms, card, tag="phase 8")
+    print(json.dumps({
+        "metric": "e2e_image_time", "value": image_ms, "unit": "ms/image",
+        "card": card,
+        "detail": {"preset": "e2e", "views": n, "resolution": [W, H],
+                   "triangles": len(faces), "texels": P, "classes": C,
+                   "widths": list(MODEL_WIDTHS), "overflow": 0,
+                   "batch_ms": [t * 1e3 for t in times],
+                   "median_ms_per_image": median_ms,
+                   "predict_ms": predict_ms, "conv_tflop": flops / 1e12,
+                   "bf16_peak_share": share, "peak_gb": peak_gb}}),
+          flush=True)
+    return launches["raster_dense"]
+
+
+def rgbd_scannet(device, card):
+    """eval_scannet.py's --model jax-unet path at `scannet`: the RGBD
+    predictor (40 classes, input 480x640) on seeded 1296x968 colour and
+    the port's own render in mm at 640x480, through fuse_views(probs=
+    (colors, depths), predict_fn=) against the per-view predict -> render
+    -> MeshAggregator.add path. Returns raster_dense's launches in the
+    batched run."""
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch.models import segmentation
+
+    _, n_views, width, height, classes = SCENES["scannet"]
+    vertices, faces, cams = scene("scannet")
+    T = len(faces)
+    renderer = smt.render.triangles(
+        SimpleNamespace(vertices=vertices, faces=faces), device=device)
+    renderer.prepare(cams)
+    cap = renderer.dense_cap_policy._cap[(height, width)]
+    depths = []
+    for cam in cams:
+        depth = renderer.render(cam)[1].t()
+        mm = torch.where(torch.isfinite(depth), depth * 1000.0,
+                         torch.zeros_like(depth))
+        mm = torch.clamp(torch.round(mm), 0, 65535).to(torch.int32)
+        depths.append(smt.data2.scannet._resize_nearest(
+            mm.cpu().numpy().astype("<u2"), EVAL_DEPTH_HW).astype(np.int32))
+    depths = torch.from_numpy(np.stack(depths)).to(device)
+    rng = np.random.default_rng(SEED)
+    colors = torch.from_numpy(rng.integers(
+        0, 256, (n_views, height, width, 3), np.uint8)).to(device)
+    predict = segmentation.load_rgbd_predictor(
+        classes=classes, input_hw=EVAL_DEPTH_HW, widths=MODEL_WIDTHS,
+        device=device)
+    rot, trans, fl, pp = smt.data.stack_cameras(cams)
+
+    def batch():
+        return smt.distributed.fuse_views(
+            vertices, faces, rot, trans, fl, pp, (colors, depths), IEW,
+            num_primitives=T, aggregator="sum", height=height, width=width,
+            dense_e_cap=cap, predict_fn=lambda pr: predict(*pr),
+            device=device)
+
+    reset_launches()
+    acc, overflow = batch()
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if launches != {"raster_tile": 0, "raster_dense": n_views}:
+        raise AssertionError(f"scannet RGBD: launches {launches}")
+    if int(overflow) != 0:
+        raise AssertionError(f"scannet RGBD: overflow {int(overflow)}")
+    agg = smt.fusion.MeshAggregator(T, classes, "sum", IEW, device=device)
+    for k, cam in enumerate(cams):
+        probs = predict(colors[k], depths[k])
+        if tuple(probs.shape) != (height, width, classes):
+            raise AssertionError(f"scannet RGBD: probs {probs.shape}")
+        agg.add(renderer.render(cam)[0], probs.transpose(0, 1))
+    if renderer.overflow_total() != 0:
+        raise AssertionError("scannet RGBD: per-view overflow")
+    if not torch.allclose(acc, agg.state, rtol=1e-6, atol=0.0):
+        err = float((acc - agg.state).abs().max())
+        raise AssertionError(f"scannet RGBD: batched != per-view ({err})")
+    predict_ms = cuda_time_ms(lambda: predict(colors[0], depths[0]), 5)
+    batch_ms = cuda_time_ms(batch, 3)
+    flops = conv_flops(predict.model,
+                       torch.zeros((1,) + EVAL_DEPTH_HW + (3,),
+                                   device=device),
+                       torch.zeros((1,) + EVAL_DEPTH_HW + (1,),
+                                   device=device))
+    phase(f"phase 8 [{card}]: scannet RGBD eval ok: {n_views} frames of "
+          f"{width}x{height} colour and {EVAL_DEPTH_HW[1]}x"
+          f"{EVAL_DEPTH_HW[0]} depth (the port's render, mm), RGBDUNet"
+          f"{MODEL_WIDTHS}, {classes} classes at {EVAL_DEPTH_HW}, dense "
+          f"budget {cap}; fuse_views(probs=(colors, depths), predict_fn=) "
+          f"== per-view predict -> render -> add (bit-equal: "
+          f"{torch.equal(acc, agg.state)}), overflow 0, launches "
+          f"{launches}; predictor {predict_ms:.6f} ms a frame ("
+          f"{flops / 1e12:.6f} TFLOP of convolutions, "
+          f"{flops / (predict_ms / 1e3) / PEAK_BF16_FLOPS:.6f} of the bf16 "
+          f"peak), batch {batch_ms / n_views:.6f} ms a frame")
+    return launches["raster_dense"]
+
+
+def pspnet_demo(device, card):
+    """colorize_cityscapes_mesh.py's predictor: PSPNet(64..512), 19
+    classes, input 512x512, sliding (512, 512) windows, scales
+    PSP_SCALES, on one 2048x1024 image; and the same composition on the
+    card against the CPU on a 256x512 crop."""
+    from semantic_meshes_torch.models import segmentation
+
+    kw = dict(classes=19, arch="pspnet", input_hw=(512, 512),
+              widths=MODEL_WIDTHS, sliding=(512, 512),
+              multi_scale=PSP_SCALES)
+    predict = segmentation.load_predictor(**kw, device=device)
+    rng = np.random.default_rng(SEED)
+    img = rng.integers(0, 256, (1024, 2048, 3)).astype(np.uint8)
+    img_d = torch.from_numpy(img).to(device)
+    probs = predict(img_d)
+    if tuple(probs.shape) != (1024, 2048, 19):
+        raise AssertionError(f"pspnet: probs {tuple(probs.shape)}")
+    sums = probs.sum(-1)
+    if not torch.allclose(sums, torch.ones_like(sums), atol=1e-3):
+        raise AssertionError("pspnet: probabilities do not sum to 1")
+    ms = cuda_time_ms(lambda: predict(img_d), reps=3, warmup=1)
+    crop = img[:256, :512]
+    cpu = segmentation.load_predictor(
+        **kw, params={k: v.cpu() for k, v in predict.params.items()},
+        device="cpu")
+    gap = probs_gap("pspnet at 256x512", predict(crop), cpu(crop))
+    phase(f"phase 8 [{card}]: pspnet demo ok: PSPNet{MODEL_WIDTHS}, 19 "
+          f"classes, input 512x512, sliding (512, 512) x scales "
+          f"{PSP_SCALES} on 2048x1024: shape (1024, 2048, 19), sums 1 "
+          f"within 1e-3, {ms:.6f} ms an image; card vs CPU at 256x512: max "
+          f"|dprob| {gap['max']:.6f}, mean {gap['mean']:.3e}, equal argmax "
+          f"{gap['argmax']:.6f}")
+
+
+def models_phase(device, card):
+    """Phase 8. Returns launches_by_path additions per kernel."""
+    t8 = time.monotonic()
+    resizes_card_vs_cpu(device, card)
+    models_card_vs_cpu(device, card)
+    groupnorm_times(device, card)
+    with tempfile.TemporaryDirectory() as workdir:
+        e2e = e2e_preset(device, card, workdir)
+    rgbd = rgbd_scannet(device, card)
+    pspnet_demo(device, card)
+    phase(f"phase 8 took {time.monotonic() - t8:.1f} s")
+    return {"raster_dense": {"e2e": e2e, "scannet RGBD eval": rgbd}}
+
+
 def parse_args():
     parser = argparse.ArgumentParser(
         description="Chip smoke run of semantic_meshes_torch on one card.")
@@ -3282,6 +3777,11 @@ def parse_args():
              "blocks, the NCCL world of one and, with two or more cards, "
              "one rank per card), for calls on several cards; prints no "
              "kernel line")
+    parser.add_argument(
+        "--models-only", action="store_true",
+        help="run phases 1, 2 and 8 only (the segmentation predictors: "
+             "card vs CPU, bench.py's e2e, the ScanNet RGBD eval, the "
+             "PSPNet demo); prints no kernel line")
     parser.add_argument(
         "--against", action="append", default=[], metavar="DIR",
         help="a checkout of an earlier commit (its semantic_meshes_torch/ "
@@ -3326,8 +3826,11 @@ def main():
             phase(f"phase 2: built {name}{' of ' + label if label else ''}"
                   ": " + " | ".join(report))
 
-    if args.sharded_only:
-        multi_gpu(device, card)
+    if args.sharded_only or args.models_only:
+        if args.sharded_only:
+            multi_gpu(device, card)
+        if args.models_only:
+            models_phase(device, card)
         phase(f"done in {time.monotonic() - t0:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -3427,6 +3930,8 @@ def main():
     tile_err, dense_err = max(tile_err, band_tile_err), max(dense_err,
                                                             band_dense_err)
     for kernel, paths in sharded.items():
+        by_path[kernel].update(paths)
+    for kernel, paths in models_phase(device, card).items():
         by_path[kernel].update(paths)
 
     def indoor_row(path, row):

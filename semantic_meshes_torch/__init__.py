@@ -6,7 +6,8 @@ against); it imports nothing from that package and nothing of JAX. The
 public surface mirrors it: `data`, `render`, `fusion`, `data2` (ScanNet
 `.sens`), plus `distributed` (batched pipeline), `geometry`, `io`,
 `metrics`, `probs_io` (probability wires), `checkpoint`, `profiling`,
-`testing`, `utils` and `convert` (state from the JAX package). Entry
+`models` (the bundled segmentation predictors), `testing`, `utils` and
+`convert` (state from the JAX package). Entry
 points take `device=` and default to "cuda"; the rasterizer's z-resolve
 is a CUDA kernel for sm_90a built from `csrc/` at first use (see
 `_build`), with a plain PyTorch version for CPU tensors; the `.sens` and
@@ -23,6 +24,7 @@ from . import fusion  # noqa: F401
 from . import geometry  # noqa: F401
 from . import io  # noqa: F401
 from . import metrics  # noqa: F401
+from . import models  # noqa: F401
 from . import ops  # noqa: F401
 from . import probs_io  # noqa: F401
 from . import profiling  # noqa: F401

@@ -59,3 +59,49 @@ def mesh_aggregator(agg, device="cuda") -> fusion.MeshAggregator:
     )
     out.state = np.asarray(agg.state, np.float32)
     return out
+
+
+def segmentation_params(tree, arch, widths):
+    """The JAX package's segmentation parameter tree (`{"params": {...}}`
+    of `UNet` / `PSPNet` / `RGBDUNet`.init, numpy, jax or tensor leaves)
+    as a state_dict of the port's `models.segmentation.ARCHS[arch]` at
+    `widths`: a flax path `a/b/kernel` becomes `a.b.weight` with the
+    (kh, kw, in, out) kernel permuted to (out, in, kh, kw), GroupNorm's
+    `scale` becomes `weight`, `bias` stays. A key missing from the tree
+    or not in the model raises KeyError; shapes are checked by
+    `load_state_dict`."""
+    from collections.abc import Mapping
+
+    import torch
+
+    from .models import segmentation
+
+    def tensor(v):
+        return v if torch.is_tensor(v) else torch.from_numpy(
+            np.array(v, np.float32))
+
+    state = {}
+
+    def walk(node, path):
+        for name, value in node.items():
+            if isinstance(value, Mapping):
+                walk(value, path + (name,))
+            elif name == "kernel":
+                state[".".join(path + ("weight",))] = tensor(
+                    value).permute(3, 2, 0, 1).contiguous()
+            else:
+                key = {"scale": "weight", "bias": "bias"}.get(name)
+                if key is None:
+                    raise KeyError(f"unknown flax leaf {'/'.join(path)}/"
+                                   f"{name}")
+                state[".".join(path + (key,))] = tensor(value)
+
+    walk(dict(tree["params"]), ())
+    with torch.device("meta"):
+        want = set(segmentation.ARCHS[arch](
+            classes=1, widths=tuple(widths)).state_dict())
+    missing, extra = sorted(want - set(state)), sorted(set(state) - want)
+    if missing or extra:
+        raise KeyError(f"{arch} {tuple(widths)}: missing {missing}, "
+                       f"not in the model {extra}")
+    return state

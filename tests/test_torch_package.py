@@ -19,7 +19,7 @@ from semantic_meshes_torch.io.ply import write_mesh
 
 PKG = pathlib.Path(semantic_meshes_torch.__file__).resolve().parent
 ROOT = PKG.parent
-FORBIDDEN = ("jax", "jaxlib", "semantic_meshes", "flax")
+FORBIDDEN = ("jax", "jaxlib", "semantic_meshes", "flax", "msgpack")
 
 
 def test_import_pulls_in_no_jax():
@@ -29,6 +29,9 @@ def test_import_pulls_in_no_jax():
         "import semantic_meshes_torch.rasterize.dense_kernel\n"
         "import semantic_meshes_torch.native\n"
         "import semantic_meshes_torch.data2.scannet\n"
+        "import semantic_meshes_torch.models\n"
+        "from semantic_meshes_torch.models import segmentation, "
+        "serialization\n"
         "from semantic_meshes_torch import (checkpoint, metrics, probs_io,\n"
         "                                   profiling)\n"
         "from semantic_meshes_torch.distributed import (\n"
@@ -83,7 +86,7 @@ def test_no_source_reaches_the_jax_packages_native_library(path):
 
 
 def test_new_modules_are_exported():
-    for name in ("checkpoint", "data2", "metrics", "probs_io",
+    for name in ("checkpoint", "data2", "metrics", "models", "probs_io",
                  "profiling"):
         assert hasattr(semantic_meshes_torch, name), name
 
@@ -92,8 +95,14 @@ def test_default_device_is_the_card_without_fallback(tmp_path):
     vertices, faces = testing.make_cube(1)
     write_mesh(tmp_path / "m.ply", vertices, faces)
     mesh = data.Ply(tmp_path / "m.ply")
+    from semantic_meshes_torch.models import segmentation
+
     if torch.cuda.is_available():
         assert render.triangles(mesh).device.type == "cuda"
+        predict = segmentation.load_predictor(classes=3, widths=(8, 16))
+        assert next(predict.model.parameters()).is_cuda
+        rgbd = segmentation.load_rgbd_predictor(classes=3, widths=(8, 16))
+        assert next(rgbd.model.parameters()).is_cuda
         cams = testing.make_ring_cameras(1, 128, 32)
         assert render.texels(mesh, cams, 1.0).device.type == "cuda"
         assert fusion.MeshAggregator(12, 3).device.type == "cuda"
@@ -106,6 +115,10 @@ def test_default_device_is_the_card_without_fallback(tmp_path):
         fusion.MeshAggregator(12, 3)
     with pytest.raises(RuntimeError, match="is_available"):
         fusion.ModelRenderer(np.zeros((12, 3), np.float32))
+    with pytest.raises(RuntimeError, match="is_available"):
+        segmentation.load_predictor(classes=3, widths=(8, 16))
+    with pytest.raises(RuntimeError, match="is_available"):
+        segmentation.load_rgbd_predictor(classes=3, widths=(8, 16))
     cam = testing.make_ring_cameras(1, 128, 32)[0]
     with pytest.raises(RuntimeError, match="is_available"):
         semantic_meshes_torch.rasterize.rasterize(
@@ -219,3 +232,19 @@ def test_dense_size_meshes_render_while_unported_features_raise(tmp_path):
             backend="dense").render(jlens)
     np.testing.assert_array_equal(
         ids.view(torch.int32).numpy().view(np.uint32), np.asarray(jids))
+
+
+def test_package_data_ships_every_kernel_source():
+    """An installed port builds its kernels and host library from
+    csrc/ at first use, so the wheel carries every source and header
+    there (both kernels include raster_common.cuh)."""
+    import fnmatch
+    import tomllib
+
+    config = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = config["tool"]["setuptools"]["package-data"][
+        "semantic_meshes_torch"]
+    sources = [p.relative_to(PKG).as_posix() for p in _build.CSRC.iterdir()]
+    assert {"csrc/raster_common.cuh", "csrc/sens_io.cpp"} <= set(sources)
+    for src in sources:
+        assert any(fnmatch.fnmatch(src, g) for g in globs), src
