@@ -174,9 +174,32 @@ each phase prints a line and raises on failure:
    0; the Cityscapes demo's PSPNet (input 512x512, sliding (512, 512),
    scales 0.75, 1.0, 1.25) on one 2048x1024 image, and card == CPU on a
    256x512 crop. `launches_by_path` gains "e2e" and "scannet RGBD eval".
-   --models-only runs phases 1, 2 and 8 alone and prints no kernel line.
 
-No earlier path was cut to make room for phases 7 and 8.
+9. segmentation training (models.training) and the ScanNet eval entry
+   point (eval_scannet.evaluate_scene), nothing cut: the trainer at the
+   eval's full width (RGBDUNet(64..512), 40 classes, input 480x640,
+   batches of 8 frames of the `scannet` cube coloured by cube side under
+   per-frame illumination and noise, lr 3e-3) until the loss is under 0.7
+   of the first, its step time, frames per second, fwd+bwd convolution
+   FLOPs against the bf16 peak and peak memory; the float32 head's weight
+   gradient card vs CPU from the same captured tensors (no TF32), one
+   step card vs CPU at full width on 2 frames of 96x128 (loss, every
+   parameter's update within 2 lr), make_data_parallel_step in an NCCL
+   world of one against single-card steps within their run-to-run noise,
+   and save -> load_rgbd_predictor(params_path=) bit for bit; then
+   evaluate_scene with the trained predictor (--model jax-unet, mul,
+   triangles) on 8 views x 3 frames of 1296x968 at `scannet` with frames
+   held in memory (no JPEG or PNG codec needed): raster_dense twice a
+   frame (the fuse pass and the fused re-render), their ids equal,
+   overflow 0, the matrices summing to the valid pixels, fused mean IoU
+   above the network's, the phase timers in ms a frame; and the
+   trained-fusion test's scene (108 triangles, 6 views of 128x96,
+   RGBDUNet(8, 16, 32)) through the same core, raster_tile twice a frame,
+   fused >= network. `launches_by_path` gains "scannet eval entry
+   (trained RGBD)" and "trained fusion scene". --models-only runs phases
+   1, 2, 8 and 9 alone and prints no kernel line.
+
+No earlier path was cut to make room for phases 7 to 9.
 
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
@@ -3520,6 +3543,24 @@ def e2e_dense_vs_plain(renderer, cams, device):
     return len(cams)
 
 
+def tile_scene_vs_plain(label, renderer, cams, device):
+    """raster_tile against its plain version on every view of `cams`, on
+    the inputs the main path gives it (the renderer's face vertices, no
+    clipping): ids equal and depths bit-equal, overflow 0."""
+    from semantic_meshes_torch.rasterize import tile_kernel
+
+    for k, cam in enumerate(cams):
+        args, overflow = view_inputs(renderer.face_vertices, cam, device)
+        zk, ik = tile_kernel.resolve_tiles_cuda(*args)
+        zp, ip = tile_kernel.resolve_tiles_plain(*args)
+        torch.cuda.synchronize()
+        if int(overflow) != 0:
+            raise AssertionError(f"{label} view {k}: overflow "
+                                 f"{int(overflow)}")
+        assert_same_image(label, k, zk, ik, zp, ip)
+    return len(cams)
+
+
 def e2e_preset(device, card, workdir):
     """bench.py's e2e preset through the port: texels, the UNet's softmax
     as fuse_views_texels' predict_fn on raw uint8 views, sum fusion.
@@ -3768,6 +3809,493 @@ def models_phase(device, card):
     return {"raster_dense": {"e2e": e2e, "scannet RGBD eval": rgbd}}
 
 
+# ---------------------------------------------------------------- phase 9
+# segmentation training (models.training) and the ScanNet eval entry point
+# (eval_scannet.evaluate_scene) on the card. The trainer runs at the eval's
+# full width: RGBDUNet(64, 128, 256, 512), 40 classes, input 480x640
+# (eval_scannet.py's --model_widths and --model_input_hw defaults), batches
+# of 8 frames, test_trained_fusion.py's learning rate 3e-3. It trains on
+# frames of the `scannet` cube (s=91, 99372 triangles, 8 ring views of
+# 1296x968) coloured by cube side (that test's class colours, a smooth
+# per-frame illumination field and iid noise; depth from the port's
+# render in mm at 640x480), and the eval fuses VIEW_FRAMES frames a view
+# with the trained weights. The frames stay in memory and evaluate_scene
+# runs without the CLI's file IO, so the run needs no imageio (no JPEG or
+# PNG codec). Then the trained-fusion test's own scene (cube s=3, 108 triangles, 6
+# views of 128x96, RGBDUNet(8, 16, 32)) through the same core, where
+# raster_tile carries the renders.
+TRAIN_BATCH = 8
+TRAIN_LR = 3e-3
+TRAIN_STEPS = 40
+TRAIN_HW = EVAL_DEPTH_HW
+VIEW_FRAMES = 3
+ILLUM = 0.45
+NOISE = 40.0
+# test_trained_fusion.py's colours of the nyu ids 1..6 (0: background)
+CLASS_COLORS = ((20, 20, 20), (200, 60, 60), (60, 200, 60), (60, 60, 200),
+                (200, 200, 60), (200, 60, 200), (60, 200, 200))
+SMALL_HW = (96, 128)  # the card vs CPU step, at full width
+SMALL_STEPS = 60  # the trained-fusion scene, as its CPU test trains
+# card vs CPU step bounds: the loss as the CPU tests bound JAX vs port
+# (tests/test_torch_training.py, readings 2.9e-5 - 1.7e-4 there); the
+# head's weight gradient from the same captured inputs in float32 (TF32
+# would show ~1e-3); every element of (card dp - CPU dp) within 2 lr +
+# 1e-6 (Adam's first update is ~+-lr whatever the gradient's size, so
+# that bound holds even for a wrong backward), and a share of them within
+# lr / 10 (read 0.996136 on the H100; the CPU tests' JAX vs port readings
+# 0.990 - 0.994); a wrong gradient moves most elements by O(lr)
+STEP_RTOL = 1e-3
+HEAD_GRAD_RTOL = 1e-5
+STEP_SHARE = 0.98
+
+
+def class_frames(cams, renderer, face_class, frames_per_view, depth_hw,
+                 seed, device):
+    """For each view, frames_per_view frames (camera, colour (H, W, 3)
+    uint8, depth (depth_hw) int32 mm, gt labels (H, W) int32 with -1 off
+    the mesh) from the port's render of `face_class` (nyu ids 1..6 per
+    face): colour = CLASS_COLORS[class] x (1 + ILLUM x a 3x4 field
+    upsampled) + N(0, NOISE), clipped, one field and noise draw a frame,
+    made on the card from a torch.Generator(seed)."""
+    from semantic_meshes_torch.models import segmentation
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fc = torch.as_tensor(np.asarray(face_class), device=device)
+    palette = torch.tensor(CLASS_COLORS, dtype=torch.float32, device=device)
+    frames = []
+    for cam in cams:
+        ids, depth = renderer.render(cam)
+        ids = ids.view(torch.int32).t()
+        H, W = ids.shape
+        cls = torch.where(ids >= 0, fc[ids.clamp(min=0).long()], 0)
+        gt = (cls - 1).to(torch.int32)
+        d = depth.t()
+        mm = torch.where(torch.isfinite(d), d * 1000.0, torch.zeros_like(d))
+        mm = segmentation.resize(mm.round().clamp(0, 65535)[None, ..., None],
+                                 depth_hw, "nearest")[0, ..., 0]
+        for _ in range(frames_per_view):
+            g = torch.randn((3, 4, 3), generator=gen, device=device)
+            field = g.repeat_interleave(-(-H // 3), 0).repeat_interleave(
+                -(-W // 4), 1)[:H, :W]
+            color = palette[cls.long()] * (1.0 + ILLUM * field)
+            color = color + NOISE * torch.randn(color.shape, generator=gen,
+                                                device=device)
+            frames.append((cam, color.clamp(0, 255).to(torch.uint8),
+                           mm.to(torch.int32), gt))
+    return frames
+
+
+def train_batch(frames, input_hw):
+    """The predictor's inputs of frames (load_rgbd_predictor's resizes:
+    colour / 255 and depth x 1e-3 bilinear to the colour's size, both
+    bilinear to input_hw) and their labels (nearest), as a train batch."""
+    from semantic_meshes_torch.models import segmentation
+
+    rgb, dep, lab = [], [], []
+    for _, color, mm, gt in frames:
+        hw = tuple(color.shape[:2])
+        d = segmentation._resize_bilinear(
+            mm.to(torch.float32)[..., None] * 1e-3, hw)
+        rgb.append(color.to(torch.float32) / 255.0)
+        dep.append(d)
+        lab.append(gt.to(torch.float32)[..., None])
+    image = segmentation.resize(torch.stack(rgb), input_hw)
+    depth = segmentation.resize(torch.stack(dep), input_hw)
+    labels = segmentation.resize(torch.stack(lab), input_hw, "nearest")
+    return {"image": image, "depth": depth,
+            "labels": labels[..., 0].to(torch.int32)}
+
+
+def head_grad_check(trainer, batch, device):
+    """One train_step with the float32 head's input and output gradient
+    captured: its weight gradient on the card against the CPU's from the
+    same captured tensors (float32, no TF32 there) and against float64.
+    Returns (loss, relative error vs CPU, vs float64, TF32's error)."""
+    head = trainer.model.layers.head
+    saved = {}
+
+    def forward_hook(_module, inputs, out):
+        saved["x"] = inputs[0].detach()
+        out.register_hook(lambda g: saved.__setitem__("g", g.detach()))
+
+    hook = head.register_forward_hook(forward_hook)
+    try:
+        loss = trainer.train_step(batch)
+    finally:
+        hook.remove()
+    gw = head.weight.grad.detach().clone()
+    x, g = saved["x"], saved["g"]
+    shape = tuple(head.weight.shape)
+    conv_wgrad = torch.nn.grad.conv2d_weight
+    cpu = conv_wgrad(x.cpu(), shape, g.cpu())
+    exact = torch.einsum("bihw,bohw->oi", x.double(),
+                         g.double())[..., None, None]
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = conv_wgrad(x, shape, g)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    scale = float(exact.abs().max())
+
+    def rel(a):
+        return float((a.double().cpu() - exact.cpu()).abs().max()) / scale
+
+    return (loss, float((gw.cpu() - cpu).abs().max()) / float(
+        cpu.abs().max()), rel(gw), rel(tf32))
+
+
+def step_card_vs_cpu(batch, device):
+    """One step of a full-width trainer on the card and on the CPU from
+    the same params, on the batch's first 2 frames shrunk to SMALL_HW:
+    (card loss, CPU loss, max |card dp - CPU dp|, share within lr / 10)."""
+    from semantic_meshes_torch.models import segmentation
+    from semantic_meshes_torch.models.training import SegmentationTrainer
+
+    small = {"image": segmentation.resize(batch["image"][:2], SMALL_HW),
+             "depth": segmentation.resize(batch["depth"][:2], SMALL_HW),
+             "labels": segmentation.resize(
+                 batch["labels"][:2, ..., None].float(), SMALL_HW,
+                 "nearest")[..., 0].to(torch.int32)}
+    kw = dict(classes=40, input_hw=SMALL_HW, arch="rgbd",
+              widths=MODEL_WIDTHS, learning_rate=TRAIN_LR, seed=SEED + 1)
+    card = SegmentationTrainer(**kw, device=device)
+    cpu = SegmentationTrainer(**kw, device="cpu")
+    before = {k: v.detach().cpu().clone() for k, v in card.params.items()}
+    loss_card = card.train_step(small)
+    loss_cpu = cpu.train_step({k: v.cpu() for k, v in small.items()})
+    err = torch.cat([((card.params[k].cpu() - before[k])
+                      - (cpu.params[k] - before[k])).abs().reshape(-1)
+                     for k in before])
+    return (loss_card, loss_cpu, float(err.max()),
+            float((err <= TRAIN_LR / 10).float().mean()))
+
+
+def step_parts(trainer, batch, reps=3):
+    """Median device ms of a train step's forward (with the loss),
+    backward and AdamW update, from CUDA events around each, with TF32
+    off as train_step holds it."""
+    from semantic_meshes_torch.models import segmentation
+    from semantic_meshes_torch.models.training import softmax_xent_ignore
+
+    labels = batch["labels"].to(torch.int64)
+    parts = []
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with segmentation._ieee_f32():
+            trainer.optimizer.zero_grad(set_to_none=True)
+            ev[0].record()
+            loss = softmax_xent_ignore(trainer._forward(batch), labels)
+            ev[1].record()
+            loss.backward()
+            ev[2].record()
+            trainer.optimizer.step()
+            ev[3].record()
+        torch.cuda.synchronize()
+        parts.append([ev[k].elapsed_time(ev[k + 1]) for k in range(3)])
+    return [statistics.median(p[k] for p in parts) for k in range(3)]
+
+
+def dp_world_of_one(batch, device):
+    """make_data_parallel_step in an NCCL world of one against single-card
+    steps from the same params and batch. cuDNN's weight gradients may
+    add in another order from run to run, so three single-card steps give
+    the noise floor (max |dp| difference over their pairs) the data-
+    parallel step is held to (twice it, plus 1e-7). Returns (noise, the
+    data-parallel step's max |dp| difference, the losses)."""
+    import torch.distributed as dist
+
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch.models.training import (
+        SegmentationTrainer, make_data_parallel_step)
+
+    kw = dict(classes=40, input_hw=TRAIN_HW, arch="rgbd",
+              widths=MODEL_WIDTHS, learning_rate=TRAIN_LR, seed=SEED + 2)
+
+    def single():
+        tr = SegmentationTrainer(**kw, device=device)
+        loss = tr.train_step(batch)
+        return loss, {k: v.detach().clone() for k, v in tr.params.items()}
+
+    runs = [single() for _ in range(3)]
+
+    def diff(a, b):
+        return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+    noise = max(diff(runs[i][1], runs[j][1])
+                for i, j in ((0, 1), (0, 2), (1, 2)))
+    smt.distributed.initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0,
+                                         device=device)
+    try:
+        mesh = smt.distributed.make_device_mesh(device=device)
+        tr = SegmentationTrainer(**kw, device=device)
+        loss = make_data_parallel_step(tr, mesh)(batch)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    dp = diff({k: v.detach() for k, v in tr.params.items()}, runs[0][1])
+    if dp > 2 * noise + 1e-7:
+        raise AssertionError(f"DP world of one: max |dp| {dp} past twice "
+                             f"the single-card noise {noise}")
+    losses = [r[0] for r in runs] + [loss]
+    if max(losses) - min(losses) > 1e-6 * abs(losses[0]):
+        raise AssertionError(f"DP world of one: losses {losses}")
+    return noise, dp, losses
+
+
+def scannet_class_scene():
+    """(vertices, faces, cameras, face classes (nyu 1..6 by cube side),
+    raw vertex labels) of the `scannet` cube, as the eval's labelled
+    meshes carry them (testing._write_labeled_cube_ply)."""
+    vertices, faces, cams = scene("scannet")
+    face_class = np.arange(len(faces)) // (len(faces) // 6) + 1
+    vertex_labels = np.zeros(len(vertices), np.int64)
+    vertex_labels[faces.reshape(-1)] = np.repeat(face_class, 3)
+    return vertices, faces, cams, face_class, vertex_labels
+
+
+def eval_in_memory(args, mesh, frames, predict, session, vertex_gt=None):
+    """eval_scannet.evaluate_scene over in-memory frames ((camera,
+    colour, depth, gt) each, indices in order) with the ids of both
+    passes compared: returns (evaluate_scene's result, launches, the
+    number of id images compared, the valid gt pixels)."""
+    from semantic_meshes_torch import eval_scannet
+
+    cameras = [(i, f[0]) for i, f in enumerate(frames)]
+    seen = {}
+
+    def on_ids(kind, index, ids):
+        ids = ids.view(torch.int32)
+        if kind == "fuse":
+            seen[index] = ids.clone()
+        elif not torch.equal(ids, seen.pop(index)):
+            raise AssertionError(f"frame {index}: the fused re-render's ids "
+                                 "differ from the fuse pass's")
+
+    def decoded(start):
+        for i in range(start, len(frames)):
+            cam, color, depth, gt = frames[i]
+            yield i, cam, color, depth, gt, None
+
+    reset_launches()
+    result = eval_scannet.evaluate_scene(
+        "scene", mesh, cameras, decoded, predict, session, args,
+        labels=lambda i: frames[i][3], vertex_gt=vertex_gt, on_ids=on_ids)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    if seen:
+        raise AssertionError(f"frames {sorted(seen)} not re-rendered")
+    valid = sum(int((f[3] >= 0).sum()) for f in frames)
+    for name in ("image_network", "image_fused"):
+        total = float(session.groups[name][0].full_matrix.sum())
+        if total != valid:
+            raise AssertionError(f"{name}: confusion matrix holds {total} "
+                                 f"pixels, the frames {valid} valid")
+    return result, launches, len(frames), valid
+
+
+def phase_ms(timers, frames):
+    """Each PhaseTimers phase in ms a frame (its total over the frames)."""
+    return {k: round(v * 1e3 / frames, 6) for k, v in timers.totals.items()}
+
+
+def train_full_width(device, card, workdir):
+    """The trainer at full width on the `scannet` class frames, the card
+    vs CPU gates, the DP world of one and the save -> load round trip.
+    Returns (trainer, params path, scene, frames)."""
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch.models import segmentation
+    from semantic_meshes_torch.models.training import SegmentationTrainer
+
+    vertices, faces, cams, face_class, vertex_labels = \
+        scannet_class_scene()
+    renderer = smt.render.triangles(
+        SimpleNamespace(vertices=vertices, faces=faces), device=device)
+    renderer.prepare(cams)
+    frames = class_frames(cams, renderer, face_class, VIEW_FRAMES,
+                          EVAL_DEPTH_HW, SEED, device)
+    batch = train_batch(frames[::VIEW_FRAMES], TRAIN_HW)  # frame 0 a view
+    if len(batch["labels"]) != TRAIN_BATCH:
+        raise AssertionError(f"train batch of {len(batch['labels'])}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    tr = SegmentationTrainer(classes=40, input_hw=TRAIN_HW, arch="rgbd",
+                             widths=MODEL_WIDTHS, learning_rate=TRAIN_LR,
+                             seed=SEED, device=device)
+    first, head_cpu, head_f64, head_tf32 = head_grad_check(tr, batch, device)
+    if head_cpu > HEAD_GRAD_RTOL:
+        raise AssertionError(f"head weight gradient: card vs CPU {head_cpu} "
+                             f"(TF32 gives {head_tf32})")
+    losses, ms = [first], []
+    for _ in range(TRAIN_STEPS - 1):
+        loss, t = timed(lambda: tr.train_step(batch))
+        losses.append(loss)
+        ms.append(t)
+    peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
+    if not losses[-1] < 0.7 * losses[0]:
+        raise AssertionError(f"training: loss {losses[0]} -> {losses[-1]}")
+    step_ms = statistics.median(ms[2:])
+    fwd_ms, bwd_ms, adam_ms = step_parts(tr, batch)
+    flops = 3 * conv_flops(tr.model, batch["image"], batch["depth"])
+    phase(f"phase 9 [{card}]: trainer RGBDUNet{MODEL_WIDTHS}, 40 classes, "
+          f"batch {TRAIN_BATCH} x {TRAIN_HW}, lr {TRAIN_LR}: loss "
+          f"{losses[0]:.6f} -> {losses[-1]:.6f} in {TRAIN_STEPS} steps "
+          f"(< 0.7x); step {step_ms:.6f} ms (median of {len(ms) - 2}), "
+          f"{TRAIN_BATCH / (step_ms / 1e3):.3f} frames/s; fwd+bwd conv "
+          f"{flops / 1e12:.6f} TFLOP (3x the forward), "
+          f"{flops / (step_ms / 1e3) / PEAK_BF16_FLOPS:.6f} of the bf16 "
+          f"peak; peak memory {peak_gb:.3f} GB; forward + loss "
+          f"{fwd_ms:.6f} ms, backward {bwd_ms:.6f} ms, AdamW {adam_ms:.6f} "
+          f"ms (medians of 3); float32 head weight gradient card vs CPU "
+          f"{head_cpu:.3e} (bound {HEAD_GRAD_RTOL}), vs float64 "
+          f"{head_f64:.3e}, with TF32 {head_tf32:.3e}")
+    device_busy("train step", "train_step", lambda: tr.train_step(batch),
+                step_ms, card, tag="phase 9")
+
+    loss_card, loss_cpu, dp_err, share = step_card_vs_cpu(batch, device)
+    if abs(loss_card - loss_cpu) > STEP_RTOL * abs(loss_cpu):
+        raise AssertionError(f"one step: loss card {loss_card} CPU "
+                             f"{loss_cpu}")
+    if dp_err > 2 * TRAIN_LR + 1e-6:
+        raise AssertionError(f"one step: max |card dp - CPU dp| {dp_err}")
+    if share < STEP_SHARE:
+        raise AssertionError(f"one step: {share} of |card dp - CPU dp| "
+                             f"within lr/10, below {STEP_SHARE}")
+    noise, dp, dp_losses = dp_world_of_one(batch, device)
+    path = os.path.join(workdir, "rgbd.msgpack")
+    tr.save(path)
+    predict = segmentation.load_rgbd_predictor(
+        classes=40, params_path=path, widths=MODEL_WIDTHS,
+        input_hw=TRAIN_HW, device=device)
+    for k, v in tr.params.items():
+        if not torch.equal(v, predict.params[k]):
+            raise AssertionError(f"save -> load_rgbd_predictor: {k}")
+    phase(f"phase 9 [{card}]: one step at full width, batch 2 x "
+          f"{SMALL_HW}: loss card {loss_card:.7f} CPU {loss_cpu:.7f} "
+          f"(rel {abs(loss_card - loss_cpu) / abs(loss_cpu):.3e}, bound "
+          f"{STEP_RTOL}); max |card dp - CPU dp| {dp_err:.3e} (bound "
+          f"{2 * TRAIN_LR + 1e-6}), {share:.6f} within lr/10 (bound "
+          f"{STEP_SHARE}); "
+          f"make_data_parallel_step in an NCCL world of one: max |dp - "
+          f"single| {dp:.3e} against a two-run noise of {noise:.3e}, losses "
+          f"{[round(x, 7) for x in dp_losses]}; save -> "
+          f"load_rgbd_predictor(params_path=) bit-equal "
+          f"({len(tr.params)} tensors)")
+    return path, (vertices, faces, cams, vertex_labels), frames
+
+
+def eval_scannet_scale(device, card, path, scannet, frames):
+    """evaluate_scene at `scannet` with the trained predictor (--model
+    jax-unet --params, mul, triangles): raster_dense twice a frame, the
+    ids of both passes equal, overflow 0, fused mIoU > network mIoU.
+    Returns raster_dense's launches."""
+    from semantic_meshes_torch import eval_scannet
+
+    vertices, faces, cams, vertex_labels = scannet
+    args = eval_scannet.parse_args([
+        "--scannet", ".", "--model", "jax-unet", "--params", path,
+        "--aggregator", "mul", "--timings", "--device", str(device)])
+    predict = eval_scannet.make_predictor(args, device)
+    session = eval_scannet.Session(eval_scannet.result_params(args), device)
+    mesh = SimpleNamespace(vertices=vertices, faces=faces)
+    result, launches, n, valid = eval_in_memory(
+        args, mesh, frames, predict, session,
+        vertex_gt=(faces.astype(np.int64), vertex_labels))
+    expect_launches("scannet eval entry", launches, "raster_dense", 2 * n)
+    if result["overflow"]:
+        raise AssertionError(f"scannet eval entry: overflow "
+                             f"{result['overflow']}")
+    metrics = session.results()
+    net = metrics["image_network"]["mean_iou"]
+    fused = metrics["image_fused"]["mean_iou"]
+    if not fused > net:
+        raise AssertionError(f"scannet eval entry: fused mIoU {fused} <= "
+                             f"network {net}")
+    width, height = (int(r) for r in cams[0].resolution)
+    phase(f"phase 9 [{card}]: scannet eval entry (trained RGBD) ok: "
+          f"{len(cams)} views x {VIEW_FRAMES} frames of {width}x{height} "
+          f"({len(faces)} triangles, mul, triangles mode): raster_dense "
+          f"{launches['raster_dense']} launches (2 a frame), the re-render's "
+          f"ids == the fuse pass's, overflow 0, matrices sum to the {valid} "
+          f"valid pixels; network mIoU {net:.6f} (accuracy "
+          f"{metrics['image_network']['accuracy']:.6f}), fused {fused:.6f} "
+          f"(accuracy {metrics['image_fused']['accuracy']:.6f}), vertex "
+          f"{metrics['vertex']['mean_iou']:.6f}; ms a frame by phase "
+          f"{json.dumps(phase_ms(session.timers, n))}")
+    return launches["raster_dense"]
+
+
+def trained_fusion_scene(device, card):
+    """tests/test_trained_fusion.py's scene at its own size on the card
+    (cube s=3, 6 views of 128x96, RGBDUNet(8, 16, 32), 60 steps at lr
+    3e-3, mul), frames in memory: fused mIoU >= network mIoU, raster_tile
+    twice a frame. Returns raster_tile's launches."""
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch import eval_scannet
+    from semantic_meshes_torch.models.training import SegmentationTrainer
+
+    H, W, widths = 96, 128, (8, 16, 32)
+    vertices, faces = smt.testing.make_cube(subdivisions=3)
+    cams = smt.testing.make_ring_cameras(num_views=6, width=W, height=H,
+                                         radius=3.0)
+    face_class = np.arange(len(faces)) // (len(faces) // 6) + 1
+    mesh = SimpleNamespace(vertices=vertices, faces=faces)
+    renderer = smt.render.triangles(mesh, device=device)
+    frames = class_frames(cams, renderer, face_class, 1, (H, W), SEED,
+                          device)
+    batch = train_batch(frames, (H, W))
+    tr = SegmentationTrainer(classes=40, input_hw=(H, W), arch="rgbd",
+                             widths=widths, learning_rate=TRAIN_LR,
+                             seed=SEED, device=device)
+    first = tr.train_step(batch)
+    for _ in range(SMALL_STEPS - 1):
+        last = tr.train_step(batch)
+    with tempfile.TemporaryDirectory() as workdir:
+        path = os.path.join(workdir, "small.msgpack")
+        tr.save(path)
+        args = eval_scannet.parse_args([
+            "--scannet", ".", "--model", "jax-unet", "--params", path,
+            "--model_widths", "8,16,32", "--model_input_hw", f"{H},{W}",
+            "--aggregator", "mul", "--device", str(device)])
+        predict = eval_scannet.make_predictor(args, device)
+    session = eval_scannet.Session(eval_scannet.result_params(args), device)
+    result, launches, n, _ = eval_in_memory(args, mesh, frames, predict,
+                                            session)
+    expect_launches("trained fusion scene", launches, "raster_tile", 2 * n)
+    if result["overflow"]:
+        raise AssertionError(f"trained fusion scene: overflow "
+                             f"{result['overflow']}")
+    checked = tile_scene_vs_plain("trained fusion scene", renderer, cams,
+                                  device)
+    metrics = session.results()
+    net = metrics["image_network"]["mean_iou"]
+    fused = metrics["image_fused"]["mean_iou"]
+    if not fused >= net:
+        raise AssertionError(f"trained fusion scene: fused mIoU {fused} < "
+                             f"network {net}")
+    phase(f"phase 9 [{card}]: trained fusion scene ok: {len(faces)} "
+          f"triangles, {n} frames of {W}x{H}, RGBDUNet{widths} loss "
+          f"{first:.6f} -> {last:.6f} in {SMALL_STEPS} steps; raster_tile "
+          f"{launches['raster_tile']} launches (2 a frame), overflow 0, "
+          f"raster_tile == plain on its {checked} views (ids equal, depths "
+          f"bit-equal); network mIoU {net:.6f}, fused {fused:.6f}")
+    return launches["raster_tile"]
+
+
+def training_phase(device, card):
+    """Phase 9. Returns launches_by_path additions per kernel."""
+    t9 = time.monotonic()
+    with tempfile.TemporaryDirectory() as workdir:
+        path, scannet, frames = train_full_width(device, card, workdir)
+        dense = eval_scannet_scale(device, card, path, scannet, frames)
+    del frames
+    tile = trained_fusion_scene(device, card)
+    phase(f"phase 9 took {time.monotonic() - t9:.1f} s")
+    return {"raster_dense": {"scannet eval entry (trained RGBD)": dense},
+            "raster_tile": {"trained fusion scene": tile}}
+
+
 def parse_args():
     parser = argparse.ArgumentParser(
         description="Chip smoke run of semantic_meshes_torch on one card.")
@@ -3779,9 +4307,10 @@ def parse_args():
              "kernel line")
     parser.add_argument(
         "--models-only", action="store_true",
-        help="run phases 1, 2 and 8 only (the segmentation predictors: "
-             "card vs CPU, bench.py's e2e, the ScanNet RGBD eval, the "
-             "PSPNet demo); prints no kernel line")
+        help="run phases 1, 2, 8 and 9 only (the segmentation "
+             "predictors: card vs CPU, bench.py's e2e, the ScanNet RGBD "
+             "eval, the PSPNet demo; training and the ScanNet eval entry "
+             "point); prints no kernel line")
     parser.add_argument(
         "--against", action="append", default=[], metavar="DIR",
         help="a checkout of an earlier commit (its semantic_meshes_torch/ "
@@ -3831,6 +4360,7 @@ def main():
             multi_gpu(device, card)
         if args.models_only:
             models_phase(device, card)
+            training_phase(device, card)
         phase(f"done in {time.monotonic() - t0:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -3932,6 +4462,8 @@ def main():
     for kernel, paths in sharded.items():
         by_path[kernel].update(paths)
     for kernel, paths in models_phase(device, card).items():
+        by_path[kernel].update(paths)
+    for kernel, paths in training_phase(device, card).items():
         by_path[kernel].update(paths)
 
     def indoor_row(path, row):

@@ -4,7 +4,9 @@ The JAX package's objects hold numpy (or jax) arrays that `np.asarray`
 exports; these helpers read them by attribute and build this package's
 objects from the exported arrays, so both sides compute from the same
 state. Nothing here imports the JAX package: any object with the same
-attributes converts.
+attributes converts. `flax_params` goes the other way, from a port
+state_dict to the JAX package's parameter tree (the tree a flax msgpack
+file holds).
 """
 
 from __future__ import annotations
@@ -74,8 +76,6 @@ def segmentation_params(tree, arch, widths):
 
     import torch
 
-    from .models import segmentation
-
     def tensor(v):
         return v if torch.is_tensor(v) else torch.from_numpy(
             np.array(v, np.float32))
@@ -97,11 +97,73 @@ def segmentation_params(tree, arch, widths):
                 state[".".join(path + (key,))] = tensor(value)
 
     walk(dict(tree["params"]), ())
-    with torch.device("meta"):
-        want = set(segmentation.ARCHS[arch](
-            classes=1, widths=tuple(widths)).state_dict())
+    want = set(_model_keys(arch, widths))
     missing, extra = sorted(want - set(state)), sorted(set(state) - want)
     if missing or extra:
         raise KeyError(f"{arch} {tuple(widths)}: missing {missing}, "
                        f"not in the model {extra}")
     return state
+
+
+def _model_keys(arch, widths):
+    """The state_dict keys of `models.segmentation.ARCHS[arch]` at
+    `widths`, in the model's parameter order."""
+    import torch
+
+    from .models import segmentation
+
+    with torch.device("meta"):
+        model = segmentation.ARCHS[arch](classes=1, widths=tuple(widths))
+    return [name for name, _ in model.named_parameters()]
+
+
+def flax_params(state_dict, arch, widths):
+    """The inverse of segmentation_params: a state_dict of the port's
+    `ARCHS[arch]` at `widths` as the JAX package's parameter tree
+    `{"params": {...}}` with float32 numpy leaves: `a.b.weight` of a
+    convolution becomes `a/b/kernel`, permuted back to (kh, kw, in, out),
+    GroupNorm's `weight` becomes `scale`, `bias` stays. The keys must be
+    the model's (KeyError otherwise)."""
+    import torch
+
+    want = _model_keys(arch, widths)
+    missing = sorted(set(want) - set(state_dict))
+    extra = sorted(set(state_dict) - set(want))
+    if missing or extra:
+        raise KeyError(f"{arch} {tuple(widths)}: missing {missing}, "
+                       f"not in the model {extra}")
+    tree = {}
+    for key in want:
+        value = state_dict[key].detach().cpu().to(torch.float32)
+        *path, leaf = key.split(".")
+        node = tree
+        for name in path:
+            node = node.setdefault(name, {})
+        if value.ndim == 4:
+            node["kernel"] = value.permute(2, 3, 1, 0).contiguous().numpy()
+        elif leaf == "weight":
+            node["scale"] = value.numpy().copy()
+        else:
+            node["bias"] = value.numpy().copy()
+    return {"params": tree}
+
+
+def adamw_state(opt_state, arch, widths):
+    """optax's adamw state (a tuple holding `ScaleByAdamState(count, mu,
+    nu)`, read by attribute) as the port's `torch.optim.AdamW` state, per
+    state_dict key of `ARCHS[arch]` at `widths`: {key: {"step": float32
+    scalar tensor, "exp_avg": mu, "exp_avg_sq": nu}}, with
+    segmentation_params' leaf mapping (kernels permuted to (out, in, kh,
+    kw)). Keyed by parameter index in `model.named_parameters()` order,
+    it is the "state" of an `AdamW.state_dict()` over that model."""
+    import torch
+
+    adam = [s for s in opt_state if hasattr(s, "mu") and hasattr(s, "nu")]
+    if len(adam) != 1:
+        raise ValueError("opt_state holds no single ScaleByAdamState")
+    count, mu, nu = adam[0].count, adam[0].mu, adam[0].nu
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    mu = segmentation_params(mu, arch, widths)
+    nu = segmentation_params(nu, arch, widths)
+    return {k: {"step": step.clone(), "exp_avg": mu[k], "exp_avg_sq": nu[k]}
+            for k in mu}

@@ -1,9 +1,11 @@
 """Synthetic scenes for tests, the chip smoke run and benchmarks.
 
-Counterpart of `make_cube`, `make_ring_cameras` and `random_probs` in
-`semantic_meshes/testing.py` (numpy only, so both packages build the very
-same scene from the same arguments): a subdivided cube viewed by pinhole
-cameras on a ring, fused with random class probabilities. The port's own
+Counterpart of `make_cube`, `make_ring_cameras`, `random_probs` and the
+fake ScanNet scene (`write_scannet_label_tsv`, `_write_labeled_cube_ply`,
+`build_synthetic_scannet_scene`) in `semantic_meshes/testing.py` (numpy
+only, so both packages build the very same scene from the same
+arguments): a subdivided cube viewed by pinhole cameras on a ring, fused
+with random class probabilities. The port's own
 `dense_resolve_scene` and `tile_resolve_scene` build inputs of the two
 z-resolve kernels directly in screen space.
 """
@@ -77,6 +79,187 @@ def make_ring_cameras(num_views=4, width=256, height=192, radius=3.0,
             )
         )
     return cams
+
+
+def write_scannet_label_tsv(path, num_classes=6):
+    """Minimal scannetv2-labels.combined.tsv: identity raw->nyu40 mapping
+    for ids 1..num_classes (schema per the real TSV's columns used by the
+    eval harness)."""
+    with open(path, "w") as f:
+        f.write("id\traw_category\tcategory\tnyu40id\n")
+        for i in range(1, num_classes + 1):
+            f.write(f"{i}\tc{i}\tc{i}\t{i}\n")
+
+
+def _write_labeled_cube_ply(path, subdivisions):
+    """Write a ScanNet-style labeled cube mesh (vertex x/y/z + ushort
+    label, int32 face lists). Returns (vertices, faces, face_class_nyu)."""
+    vertices, faces = make_cube(subdivisions=subdivisions)
+    tris_per_side = len(faces) // 6
+    face_class_nyu = (np.arange(len(faces)) // tris_per_side) + 1  # 1..6
+
+    vertex_labels = np.zeros(len(vertices), np.int64)
+    for f, cls in zip(faces, face_class_nyu):
+        vertex_labels[f] = cls
+
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {len(vertices)}\n".encode())
+        f.write(b"property float x\nproperty float y\nproperty float z\n")
+        f.write(b"property ushort label\n")
+        f.write(f"element face {len(faces)}\n".encode())
+        f.write(b"property list uchar int vertex_indices\nend_header\n")
+        rec = np.empty(
+            len(vertices),
+            dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"), ("l", "<u2")],
+        )
+        rec["x"], rec["y"], rec["z"] = vertices.T
+        rec["l"] = vertex_labels
+        f.write(rec.tobytes())
+        frec = np.empty(len(faces), dtype=[("n", "u1"), ("i", "<i4", (3,))])
+        frec["n"] = 3
+        frec["i"] = faces
+        f.write(frec.tobytes())
+    return vertices, faces, face_class_nyu
+
+
+def build_synthetic_scannet_scene(root, name, *, subdivisions=3,
+                                  num_views=4, width=128, height=96,
+                                  classes=40, radius=3.0,
+                                  write_probs=True, renderer=None,
+                                  prob_noise=0.0, noise_seed=0,
+                                  simplify_factors=(), device="cpu"):
+    """Build a fake ScanNet scene directory for eval tests/benchmarks.
+
+    Counterpart of the JAX package's `testing.build_synthetic_scannet_
+    scene`, the same files from the same arguments. Creates
+    scans/<name>/ with <name>_vh_clean_2.labels.ply (cube mesh,
+    per-vertex raw labels 1..6 by cube side), <name>.sens (posed frames
+    with jpeg color + zlib depth), label-filt/<i>.png ground truth, and
+    (optionally) probs/<name>/<i>.npy one-hot predictions.
+
+    prob_noise > 0 makes the written predictions imperfect (so fusion has
+    something to fix): per covered pixel, the label is flipped to a
+    random class with probability prob_noise * frame_index /
+    (num_views - 1) (later frames are noisier, so per-image vs per-pixel
+    weighting genuinely differ), then every distribution is smoothed with
+    30% uniform mass (so the mul aggregator sees graded confidences).
+    Deterministic via noise_seed.
+
+    simplify_factors: iterable of STRINGS (e.g. ("0.25",)); for each, a
+    coarser cube (~factor x the faces) is written under the
+    `_vh_clean_2.labels_simplified-<factor>.ply` name the eval resolves
+    for --simplify <factor>.
+
+    Returns (num_faces, num_views). The gt label images are rendered by
+    `renderer`, or by a port TrianglesRenderer on `device` (the CPU by
+    default). imageio writes the PNGs and JPEGs.
+    """
+    import io
+    import os
+    import zlib
+
+    import imageio.v2 as imageio
+
+    from . import data as sm_data
+    from . import render as sm_render
+    from .data2.scannet import write_sens
+
+    root = os.fspath(root)
+    scene = os.path.join(root, "scans", name)
+    os.makedirs(os.path.join(scene, "label-filt"), exist_ok=True)
+
+    W, H = int(width), int(height)
+    ply_path = os.path.join(scene, f"{name}_vh_clean_2.labels.ply")
+    vertices, faces, face_class_nyu = _write_labeled_cube_ply(
+        ply_path, subdivisions)
+    for factor in simplify_factors:
+        # a coarser cube stands in for meshlab's quadric decimation: same
+        # geometry, ~factor x the face count
+        sub = max(1, round(subdivisions * float(factor) ** 0.5))
+        _write_labeled_cube_ply(
+            os.path.join(
+                scene,
+                f"{name}_vh_clean_2.labels_simplified-{factor}.ply",
+            ),
+            sub,
+        )
+
+    cams = make_ring_cameras(num_views=num_views, width=W, height=H,
+                             radius=radius)
+    if renderer is None:
+        renderer = sm_render.triangles(sm_data.Ply(ply_path), device=device)
+
+    fx = fy = 0.9 * min(W, H)
+    intrinsic = np.eye(4, dtype=np.float32)
+    intrinsic[0, 0], intrinsic[1, 1] = fx, fy
+    intrinsic[0, 2], intrinsic[1, 2] = W / 2, H / 2
+
+    probs_dir = os.path.join(root, "probs", name)
+    if write_probs:
+        os.makedirs(probs_dir, exist_ok=True)
+    noise_rng = np.random.default_rng(noise_seed)
+
+    frames = []
+    for i, cam in enumerate(cams):
+        w2c = np.eye(4, dtype=np.float32)
+        w2c[:3, :3] = cam.rotation
+        w2c[:3, 3] = cam.translation
+        c2w = np.linalg.inv(w2c)
+
+        idx, _ = renderer.render(cam)
+        idx_hw = idx.cpu().numpy().T
+        covered = idx_hw != 0xFFFFFFFF
+        gt = np.zeros((H, W), np.uint16)
+        gt[covered] = face_class_nyu[idx_hw[covered].astype(np.int64)]
+        imageio.imwrite(
+            os.path.join(scene, "label-filt", f"{i}.png"), gt
+        )
+
+        if write_probs:
+            probs = np.zeros((H, W, classes), np.float32)
+            ys, xs = np.nonzero(covered)
+            labels = gt[covered].astype(np.int64) - 1
+            if prob_noise > 0:
+                frame_noise = prob_noise * (
+                    i / max(num_views - 1, 1)
+                )
+                flip = noise_rng.random(len(labels)) < frame_noise
+                labels = np.where(
+                    flip,
+                    noise_rng.integers(0, classes, size=len(labels)),
+                    labels,
+                )
+            probs[ys, xs, labels] = 1.0
+            if prob_noise > 0:
+                # 30% uniform smoothing: graded confidences for "mul"
+                probs[ys, xs] = 0.7 * probs[ys, xs] + 0.3 / classes
+            np.save(os.path.join(probs_dir, f"{i}.npy"), probs)
+
+        color = np.zeros((H, W, 3), np.uint8)
+        color[covered] = 128
+        depth = np.full((H, W), 1000, np.uint16)
+        buf = io.BytesIO()
+        imageio.imwrite(buf, color, format="jpeg")
+        frames.append(
+            dict(
+                camera_to_world=c2w,
+                timestamp_color=i,
+                timestamp_depth=i,
+                color_data=buf.getvalue(),
+                depth_data=zlib.compress(depth.tobytes()),
+            )
+        )
+
+    write_sens(
+        os.path.join(scene, f"{name}.sens"),
+        "synthetic",
+        intrinsic, np.eye(4, dtype=np.float32),
+        intrinsic, np.eye(4, dtype=np.float32),
+        color_hw=(H, W), depth_hw=(H, W), depth_shift=1000.0,
+        frames=frames,
+    )
+    return len(faces), num_views
 
 
 def random_probs(rng, height, width, classes, dont_care_frac=0.0):

@@ -32,9 +32,10 @@ class World:
     """`n` ranks running `cases` in order; they start when the World is
     made, and the first read waits for them. `store`: the rendezvous
     (initialize_multihost's coordinator_address), by default a file://
-    store in `tmp`."""
+    store in `tmp`. `worker`: the rank's script (the sharded-fuse worker
+    by default; tests/_torch_train_worker.py takes the same arguments)."""
 
-    def __init__(self, tmp, cases, n=4, store=None):
+    def __init__(self, tmp, cases, n=4, store=None, worker=WORKER):
         self.n = n
         self.out = tmp / "out"
         self.out.mkdir()
@@ -44,7 +45,7 @@ class World:
                        "PYTHONPATH", ""))
         self.procs = [
             subprocess.Popen(
-                [sys.executable, WORKER, "--rank", str(r), "--world", str(n),
+                [sys.executable, worker, "--rank", str(r), "--world", str(n),
                  "--store", store or f"file://{tmp}/store", "--cases",
                  str(tmp / "cases.json"), "--out", str(self.out)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,

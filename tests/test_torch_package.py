@@ -31,7 +31,11 @@ def test_import_pulls_in_no_jax():
         "import semantic_meshes_torch.data2.scannet\n"
         "import semantic_meshes_torch.models\n"
         "from semantic_meshes_torch.models import segmentation, "
-        "serialization\n"
+        "serialization, training\n"
+        "from semantic_meshes_torch import eval_scannet\n"
+        "lazy = [m for m in ('yaml', 'imageio') if m in "
+        "sys.modules]\n"
+        "assert not lazy, lazy\n"
         "from semantic_meshes_torch import (checkpoint, metrics, probs_io,\n"
         "                                   profiling)\n"
         "from semantic_meshes_torch.distributed import (\n"
@@ -89,13 +93,15 @@ def test_new_modules_are_exported():
     for name in ("checkpoint", "data2", "metrics", "models", "probs_io",
                  "profiling"):
         assert hasattr(semantic_meshes_torch, name), name
+    assert hasattr(semantic_meshes_torch.models, "training")
 
 
 def test_default_device_is_the_card_without_fallback(tmp_path):
     vertices, faces = testing.make_cube(1)
     write_mesh(tmp_path / "m.ply", vertices, faces)
     mesh = data.Ply(tmp_path / "m.ply")
-    from semantic_meshes_torch.models import segmentation
+    from semantic_meshes_torch import eval_scannet
+    from semantic_meshes_torch.models import segmentation, training
 
     if torch.cuda.is_available():
         assert render.triangles(mesh).device.type == "cuda"
@@ -103,6 +109,8 @@ def test_default_device_is_the_card_without_fallback(tmp_path):
         assert next(predict.model.parameters()).is_cuda
         rgbd = segmentation.load_rgbd_predictor(classes=3, widths=(8, 16))
         assert next(rgbd.model.parameters()).is_cuda
+        trainer = training.SegmentationTrainer(3, widths=(8, 16))
+        assert next(trainer.model.parameters()).is_cuda
         cams = testing.make_ring_cameras(1, 128, 32)
         assert render.texels(mesh, cams, 1.0).device.type == "cuda"
         assert fusion.MeshAggregator(12, 3).device.type == "cuda"
@@ -119,6 +127,14 @@ def test_default_device_is_the_card_without_fallback(tmp_path):
         segmentation.load_predictor(classes=3, widths=(8, 16))
     with pytest.raises(RuntimeError, match="is_available"):
         segmentation.load_rgbd_predictor(classes=3, widths=(8, 16))
+    with pytest.raises(RuntimeError, match="is_available"):
+        training.SegmentationTrainer(3, widths=(8, 16))
+    args = eval_scannet.parse_args(["--scannet", str(tmp_path)])
+    assert args.device == "cuda"
+    with pytest.raises(RuntimeError, match="is_available"):
+        eval_scannet.run(args)
+    with pytest.raises(RuntimeError, match="is_available"):
+        eval_scannet.Session({}, "cuda")
     cam = testing.make_ring_cameras(1, 128, 32)[0]
     with pytest.raises(RuntimeError, match="is_available"):
         semantic_meshes_torch.rasterize.rasterize(
