@@ -2,7 +2,7 @@
 """Chip smoke run of semantic_meshes_torch on one CUDA card (sm_90a).
 
     python3 chip_smoke.py [--against DIR ...] [--sharded-only]
-                          [--models-only]
+                          [--models-only] [--scripts-only]
 
 Drives the port's main paths through their public entry points, at six
 of bench.py's presets, their distorted variants and their indoor
@@ -199,7 +199,30 @@ each phase prints a line and raises on failure:
    (trained RGBD)" and "trained fusion scene". --models-only runs phases
    1, 2, 8 and 9 alone and prints no kernel line.
 
-No earlier path was cut to make room for phases 7 to 9.
+10. the user scripts (semantic_meshes_torch.scripts) on the card, through
+   main(argv) in process where launches are counted (every counter set
+   to 0 just before a run and read just after) and as processes where
+   the scripts run their own children, nothing cut: the Cityscapes demo
+   at bench_cityscapes' defaults (20 views of 2048x1024, 19 classes, cube
+   s=64: raster_dense; f16 maps made on the card from seeds, saved from
+   pinned memory) through colorize_cityscapes_mesh --probs chunked and
+   per view (equal colours, overflow 0, raster_dense once a view, and ==
+   the fusion of resolve_dense_plain's ids on every view), then
+   bench_cityscapes' probs and unet legs as processes; precompute_probs
+   with the bundled UNet(64..512) on 4 views of 2048x1024 (float32 maps
+   == load_predictor in process bit for bit; float16 and top-3 stores
+   through the demo, the share of faces with equal colours >= 0.99);
+   render_annotations on the demo scene in triangle mode and at 0.1
+   texels a pixel (label PNGs == ModelRenderer's argmax over in-process
+   renders, each primitive one label in every view); demo_cube at its
+   defaults (raster_tile) and colorize_mesh --remap at `default`, card ==
+   CPU byte for byte; resume_killtest at its defaults (the eval CLI on
+   the card, SIGKILL at the first manifest, resume == straight exactly)
+   and bench_eval at its defaults (43200 faces, 40 frames of 1296x968).
+   `launches_by_path` gains the six in-process paths. --scripts-only runs
+   phases 1, 2 and 10 alone and prints no kernel line.
+
+No earlier path was cut to make room for phases 7 to 10.
 
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
@@ -4296,6 +4319,524 @@ def training_phase(device, card):
             "raster_tile": {"trained fusion scene": tile}}
 
 
+# ------------------------------------------------------------------ phase 10
+
+# bench_cityscapes' defaults: the Cityscapes frame size, 19 classes, cube
+# s=64 (49152 triangles: raster_dense), f16 maps from seeds 1001..1020
+CITY = dict(views=20, subdivisions=64, width=2048, height=1024)
+PRE_VIEWS = 4  # precompute_probs' views (UNet(64..512) at 2048x1024)
+PRE_TOPK = 3
+TOPK_SHARE = 0.99  # faces whose top-3 colour equals the dense one
+# The bundled UNet's random init gives near-uniform maps (top-1 ~0.12;
+# the top 3 hold over half the mass on 0.06% of pixels, so a top-3 store
+# is don't-care almost everywhere: on random-noise views the top-3
+# colour differed from the dense one on 1.3% of the faces). So the UNet is
+# trained first, as a user's would be: PRE_STEPS AdamW steps (lr PRE_LR)
+# on batches of PRE_BATCH mosaics at its 512x512 input, blocks of
+# PRE_BLOCK pixels each of one class in its Cityscapes colour +
+# N(0, PRE_NOISE); the views are such mosaics at 2048x1024 (blocks 4x
+# larger, as the predictor's resize shrinks them), and precompute_probs
+# reads the trained weights from the trainer's flax msgpack.
+PRE_STEPS = 60
+PRE_LR = 3e-3
+PRE_BATCH = 4
+PRE_BLOCK = 16
+PRE_NOISE = 12.0
+REMAP_CLASSES = 24  # colorize_mesh --remap's class count (>= colours)
+SCRIPT_TIMEOUT_S = 600
+
+
+def script_env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def counted(fn, *args):
+    """fn(*args) with every launch counter set to 0 just before it and
+    read just after: (result, launches)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, read_launches()
+
+
+def ply_colors(path):
+    from semantic_meshes_torch.io.ply import read_ply
+
+    e = read_ply(str(path))
+    return np.stack([e["face"].data[c] for c in ("red", "green", "blue")],
+                    -1)
+
+
+def run_script(module, args, label, failures):
+    """`python -m semantic_meshes_torch.scripts.<module> args` on the
+    card; returns its last stdout line as JSON (None on failure)."""
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", f"semantic_meshes_torch.scripts.{module}"]
+        + [str(a) for a in args], env=script_env(), cwd=HERE,
+        capture_output=True, text=True, timeout=SCRIPT_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        failures.append(f"{label}: rc {proc.returncode}")
+        print(proc.stdout[-3000:] + proc.stderr[-3000:], flush=True)
+        return None
+    result = json.loads(lines[-1])
+    phase(f"phase 10: {label} ({time.monotonic() - t:.1f} s): "
+          + json.dumps(result))
+    return result
+
+
+def check(failures, ok, message):
+    """Record a failed gate (every gate of phase 10 runs; the phase raises
+    at its end)."""
+    if not ok:
+        failures.append(message)
+        phase(f"phase 10: FAILED: {message}")
+    return ok
+
+
+def city_paths(root):
+    return SimpleNamespace(
+        ws=os.path.join(root, "ws"), mesh=os.path.join(root, "mesh.ply"),
+        images=os.path.join(root, "images"),
+        probs=os.path.join(root, "probs-f16"))
+
+
+def cityscapes_demo(device, root, failures):
+    """colorize_cityscapes_mesh --probs at bench_cityscapes' defaults,
+    chunked and per view; both == a fusion of raster_dense's plain ids;
+    then bench_cityscapes' probs and unet legs in processes."""
+    from semantic_meshes_torch import data, fusion, probs_io, render
+    from semantic_meshes_torch.rasterize import dense_kernel
+    from semantic_meshes_torch.scripts import bench_cityscapes as bench
+    from semantic_meshes_torch.scripts import colorize_cityscapes_mesh as demo
+    from semantic_meshes_torch.utils import CLASS_TO_COLOR
+
+    t = time.monotonic()
+    faces = bench.build_scene(root, **CITY)
+    bench.write_workspace(root, views=CITY["views"], width=CITY["width"],
+                          height=CITY["height"], cam_model="PINHOLE")
+    bench.ensure_probs(root, "f16", views=CITY["views"], width=CITY["width"],
+                       height=CITY["height"], device=device)
+    p = city_paths(root)
+    phase(f"phase 10: Cityscapes scene ({faces} triangles, {CITY['views']} "
+          f"views of {CITY['width']}x{CITY['height']}, f16 maps made on the "
+          f"card) in {time.monotonic() - t:.1f} s")
+    base = ["--colmap", p.ws, "--input_ply", p.mesh, "--images", p.images,
+            "--probs", p.probs, "--probs_dtype", "f16", "--device", "cuda"]
+    runs, by_path = {}, {}
+    for chunk, label in ((0, "chunked"), (1, "per view")):
+        out = os.path.join(root, f"demo_chunk{chunk}.ply")
+        args = demo.parse_args(base + ["--output_ply", out,
+                                       "--chunk", str(chunk)])
+        t = time.monotonic()
+        result, launches = counted(demo.run, args)
+        wall = time.monotonic() - t
+        runs[chunk] = result
+        by_path[f"cityscapes demo ({label})"] = launches["raster_dense"]
+        timers = {k: round(v["median_s"] * 1e3, 3) for k, v in
+                  result["timers"].as_dict().items()}
+        phase(f"phase 10: colorize_cityscapes_mesh --chunk {chunk} in "
+              f"process: {wall:.1f} s ({wall / CITY['views']:.4f} s/image), "
+              f"launches {launches}, overflow {result['overflow']}, phase "
+              f"medians ms {timers}")
+        check(failures, result["overflow"] == 0,
+              f"demo chunk {chunk}: overflow {result['overflow']}")
+        check(failures, launches == {"raster_tile": 0,
+                                     "raster_dense": CITY["views"]},
+              f"demo chunk {chunk}: launches {launches}")
+        check(failures, np.array_equal(ply_colors(out), result["colors"]),
+              f"demo chunk {chunk}: PLY colours != the run's")
+    check(failures, np.array_equal(runs[0]["colors"], runs[1]["colors"]),
+          "demo: chunked colours != per-view colours")
+
+    # the same fusion from raster_dense's plain version's ids
+    mesh, ws = data.Ply(p.mesh), data.Colmap(p.ws)
+    files = sorted(os.listdir(p.images))
+    cams = [ws.getCamera(f) for f in files]
+    fv = face_vertices(mesh.vertices, mesh.faces, device)
+    cap = dense_budget(mesh.vertices, mesh.faces, cams, device)
+    agg = fusion.MeshAggregator(len(mesh.faces), demo.CLASSES, "sum",
+                                device=device)
+    renderer = render.triangles(mesh, device=device)
+    renderer.prepare(cams)
+    err, t = 0.0, time.monotonic()
+    for k, (f, cam) in enumerate(zip(files, cams)):
+        args, _, overflow = dense_view_inputs(fv, cam, cap, device)
+        if not check(failures, args is not None,
+                     f"demo view {k}: zero pair budget (no kernel)"):
+            continue
+        zk, ik = dense_kernel.resolve_dense_cuda(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        torch.cuda.synchronize()
+        err = max(err, assert_same_image("cityscapes demo", k, zk, ik, zp,
+                                         ip))
+        check(failures, int(overflow) == 0, f"demo view {k}: overflow")
+        ids = renderer.render(cam)[0].view(torch.int32).t()
+        check(failures, torch.equal(ids, ip),
+              f"demo view {k}: render() ids != plain ids")
+        probs = probs_io.densify(probs_io.load(
+            os.path.join(p.probs, os.path.splitext(f)[0]), "f16", device))
+        agg.add(ip.t(), probs.transpose(0, 1))
+        del args, zk, ik, zp, ip, ids, probs
+    fused = agg.get().cpu().numpy()
+    plain = np.where((fused.sum(-1) < demo.DONT_CARE_THRESHOLD)[:, None],
+                     np.uint8(0), CLASS_TO_COLOR[fused.argmax(-1)])
+    seen = int(fused.sum(-1).astype(bool).sum())
+    check(failures, np.array_equal(plain, runs[0]["colors"]),
+          "demo: colours != the plain-id fusion's")
+    phase(f"phase 10: demo chunked == per view == the fusion of "
+          f"resolve_dense_plain's ids on all {len(cams)} views (kernel ids "
+          f"== plain, depths bit-equal; {seen} faces seen) "
+          f"[{time.monotonic() - t:.1f} s]")
+    del agg, renderer, fv
+    torch.cuda.empty_cache()
+    bench_lines = {leg: run_script(
+        "bench_cityscapes", ["--keep", root, "--leg", leg, "--device", "cuda"],
+        f"bench_cityscapes --leg {leg}", failures)
+        for leg in ("probs", "unet")}
+    return by_path, err, bench_lines
+
+
+def mosaics(gen, n, height, width, block, device):
+    """n (height, width, 3) float32 images of block x block squares, each
+    of a random Cityscapes class in its colour + N(0, PRE_NOISE), clipped
+    to [0, 255] and rounded, and their (n, height, width) int32 labels;
+    made on the card from `gen`."""
+    from semantic_meshes_torch.utils import CLASS_TO_COLOR
+
+    palette = torch.as_tensor(CLASS_TO_COLOR, dtype=torch.float32,
+                              device=device)
+    cls = torch.randint(0, len(palette), (n, height // block, width // block),
+                        generator=gen, device=device)
+    cls = cls.repeat_interleave(block, 1).repeat_interleave(block, 2)
+    noise = torch.randn((n, height, width, 3), generator=gen, device=device)
+    image = (palette[cls] + PRE_NOISE * noise).clamp(0, 255).round()
+    return image, cls.to(torch.int32)
+
+
+def precompute_leg(device, workdir, failures):
+    """precompute_probs with the bundled UNet(64..512) at 2048x1024: f32
+    maps == load_predictor in process bit for bit; f16 and top-3 stores
+    through colorize_cityscapes_mesh --probs."""
+    from semantic_meshes_torch.io.image import imread, imwrite
+    from semantic_meshes_torch.models import segmentation
+    from semantic_meshes_torch.models.training import SegmentationTrainer
+    from semantic_meshes_torch.scripts import bench_cityscapes as bench
+    from semantic_meshes_torch.scripts import colorize_cityscapes_mesh as demo
+    from semantic_meshes_torch.scripts import precompute_probs
+
+    root = os.path.join(workdir, "precompute")
+    size = dict(width=CITY["width"], height=CITY["height"])
+    bench.build_scene(root, views=PRE_VIEWS,
+                      subdivisions=CITY["subdivisions"], **size)
+    bench.write_workspace(root, views=PRE_VIEWS, cam_model="PINHOLE", **size)
+    images = os.path.join(root, "images")
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    t = time.monotonic()
+    trainer = SegmentationTrainer(19, input_hw=(512, 512), arch="unet",
+                                  widths=MODEL_WIDTHS, learning_rate=PRE_LR,
+                                  seed=SEED, device=device)
+    losses = []
+    for _ in range(PRE_STEPS):
+        image, labels = mosaics(gen, PRE_BATCH, 512, 512, PRE_BLOCK, device)
+        losses.append(trainer.train_step({"image": image / 255.0,
+                                          "labels": labels}))
+    params = os.path.join(root, "unet.msgpack")
+    trainer.save(params)
+    del trainer
+    phase(f"phase 10: UNet{MODEL_WIDTHS} trained {PRE_STEPS} steps on "
+          f"{PRE_BATCH} mosaics of 512x512 (loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}) in {time.monotonic() - t:.1f} s")
+    scale = CITY["width"] // 512
+    for i in range(1, PRE_VIEWS + 1):
+        image, _ = mosaics(gen, 1, CITY["height"], CITY["width"],
+                           PRE_BLOCK * scale, device)
+        imwrite(os.path.join(images, f"v{i:03d}.png"),
+                image[0].to(torch.uint8).cpu().numpy())
+    stores = {"f32": ["--dtype", "float32"], "f16": ["--dtype", "float16"],
+              f"top{PRE_TOPK}": ["--topk", str(PRE_TOPK)]}
+    for name, extra in stores.items():
+        t = time.monotonic()
+        precompute_probs.main(["--images", images, "--out",
+                               os.path.join(root, name), "--params", params,
+                               "--device", "cuda"] + extra)
+        phase(f"phase 10: precompute_probs {' '.join(extra)}: "
+              f"{(time.monotonic() - t) / PRE_VIEWS:.4f} s/image "
+              f"(model build included)")
+    predict = segmentation.load_predictor(classes=19, params_path=params,
+                                          device=device)
+    for f in sorted(os.listdir(images)):
+        want = predict(imread(os.path.join(images, f))).cpu().numpy()
+        got = np.load(os.path.join(root, "f32",
+                                   os.path.splitext(f)[0] + ".npy"))
+        check(failures, got.dtype == np.float32 and np.array_equal(got, want),
+              f"precompute {f}: f32 map != load_predictor's")
+    del predict
+    colors = {}
+    for name in ("f16", f"top{PRE_TOPK}"):
+        colors[name] = demo.run(demo.parse_args([
+            "--colmap", os.path.join(root, "ws"), "--input_ply",
+            os.path.join(root, "mesh.ply"), "--images", images,
+            "--output_ply", os.path.join(root, f"{name}.ply"), "--probs",
+            os.path.join(root, name), "--device", "cuda"]))["colors"]
+    share = float(np.all(colors["f16"] == colors[f"top{PRE_TOPK}"],
+                         -1).mean())
+    check(failures, share >= TOPK_SHARE,
+          f"precompute: top-{PRE_TOPK} colour share {share} < {TOPK_SHARE}")
+    phase(f"phase 10: precompute_probs (the trained UNet{MODEL_WIDTHS}, "
+          f"--params msgpack) f32 maps == load_predictor bit for bit on "
+          f"{PRE_VIEWS} views; faces with the top-{PRE_TOPK} colour "
+          f"== the f16 colour: {share:.6f} (gate {TOPK_SHARE})")
+
+
+def annotation_views(renderer, cams, fused, label_dir, names, device,
+                     threshold=0.5):
+    """Every label PNG == the argmax of ModelRenderer over the ids the
+    renderer gives in process (255 at mass <= threshold); returns the
+    (id, label) pairs of covered pixels and the number of mismatching
+    views."""
+    from semantic_meshes_torch import fusion
+    from semantic_meshes_torch.io.image import imread
+
+    mr = fusion.ModelRenderer(fused, device=device)
+    pairs, bad = [], 0
+    for name, cam in zip(names, cams):
+        ids = renderer.render(cam)[0].view(torch.int32).t()  # (H, W)
+        probs = mr.render(ids)
+        cls = probs.argmax(-1).to(torch.uint8)
+        want = torch.where(probs.sum(-1) > threshold, cls,
+                           torch.full_like(cls, 255))
+        got = torch.from_numpy(imread(os.path.join(
+            label_dir, os.path.splitext(name)[0] + ".png"))).to(device)
+        bad += int(not torch.equal(got, want))
+        cov = ids >= 0
+        pairs.append(torch.stack([ids[cov].long(), got[cov].long()], -1))
+    return torch.cat(pairs), bad
+
+
+def annotations_leg(device, root, failures):
+    """render_annotations on the Cityscapes scene, triangles and texels at
+    0.1: the PNGs == the in-process re-render, each face one label in
+    every view that sees it."""
+    from semantic_meshes_torch import data, render
+    from semantic_meshes_torch.io.image import imwrite
+    from semantic_meshes_torch.scripts import render_annotations
+
+    p = city_paths(root)
+    mesh, ws = data.Ply(p.mesh), data.Colmap(p.ws)
+    names = [ws.getImageName(i) for i in range(ws.getImageNum())]
+    cams = [ws.getCamera(n) for n in names]
+    tri_class = torch.from_numpy(
+        (np.arange(len(mesh.faces)) * 7) % 19).to(device)
+    masks = os.path.join(root, "masks")
+    os.makedirs(masks)
+    renderer = render.triangles(mesh, device=device)
+    renderer.prepare(cams)
+    for name, cam in zip(names, cams):
+        ids = renderer.render(cam)[0].view(torch.int32).t()
+        imwrite(os.path.join(masks, name), torch.where(
+            ids >= 0, tri_class[ids.clamp(min=0).long()], 0).to(
+                torch.uint8).cpu().numpy())
+    by_path = {}
+    for label, extra in (("render_annotations", []),
+                         ("render_annotations texels 0.1",
+                          ["--texels_per_pixel", "0.1"])):
+        out = os.path.join(root, label.replace(" ", "_"))
+        npz = out + ".npz"
+        t = time.monotonic()
+        _, launches = counted(render_annotations.main, [
+            "--colmap", p.ws, "--input_ply", p.mesh, "--classes", "19",
+            "--masks", masks, "--output_dir", out, "--save_fused", npz,
+            "--device", "cuda"] + extra)
+        wall = time.monotonic() - t
+        by_path[label] = launches["raster_dense"]
+        check(failures, launches == {"raster_tile": 0,
+                                     "raster_dense": 2 * len(cams)},
+              f"{label}: launches {launches}")
+        fused = torch.from_numpy(np.load(npz)["fused"]).to(device)
+        r = render.texels(mesh, cams, 0.1, device=device) if extra \
+            else renderer
+        r.prepare(cams)
+        pairs, bad = annotation_views(r, cams, fused,
+                                      os.path.join(out, "labels"), names,
+                                      device)
+        check(failures, bad == 0,
+              f"{label}: {bad} label PNGs != the in-process re-render")
+        check(failures, r.overflow_total() == 0, f"{label}: overflow")
+        pairs = torch.unique(pairs, dim=0)
+        prims = torch.unique(pairs[:, 0])
+        check(failures, len(prims) == len(pairs),
+              f"{label}: {len(pairs) - len(prims)} primitives with two "
+              "labels across views")
+        if not extra:
+            check(failures, torch.equal(pairs[:, 1],
+                                        tri_class[pairs[:, 0]]),
+                  f"{label}: a face's label != its mask class")
+        phase(f"phase 10: {label}: {wall:.1f} s ({wall / len(cams):.4f} s a "
+              f"view, fuse + re-render + 2 PNGs), launches {launches}, "
+              f"{len(prims)} primitives seen, each one label in every view; "
+              "label PNGs == the in-process ModelRenderer argmax")
+        del fused, r
+    return by_path
+
+
+def same_files(failures, label, a, b):
+    """Every file of directory a byte-equal to b's; returns the count."""
+    names = sorted(os.listdir(a))
+    check(failures, names == sorted(os.listdir(b)),
+          f"{label}: file lists differ")
+    differ = []
+    for name in names:
+        with open(os.path.join(a, name), "rb") as f, \
+                open(os.path.join(b, name), "rb") as g:
+            if f.read() != g.read():
+                differ.append(name)
+    check(failures, not differ, f"{label}: card != CPU in {differ}")
+    return len(names)
+
+
+def card_vs_cpu_ids(failures, label, mesh, cams, device):
+    """The card's render ids == the CPU's on every view."""
+    from semantic_meshes_torch import render
+
+    card = render.triangles(mesh, device=device)
+    cpu = render.triangles(mesh, device="cpu")
+    for k, cam in enumerate(cams):
+        a = card.render(cam)[0].view(torch.int32).cpu()
+        b = cpu.render(cam)[0].view(torch.int32)
+        check(failures, torch.equal(a, b),
+              f"{label} view {k}: {int((a != b).sum())} ids card != CPU")
+
+
+def tile_scripts_leg(device, workdir, failures):
+    """demo_cube at its defaults and colorize_mesh --remap at bench.py's
+    `default`, each on the card and on the CPU: the same files."""
+    from semantic_meshes_torch import data, testing
+    from semantic_meshes_torch.io.image import imwrite
+    from semantic_meshes_torch.io.ply import write_mesh
+    from semantic_meshes_torch.scripts import bench_cityscapes as bench
+    from semantic_meshes_torch.scripts import colorize_mesh, demo_cube
+
+    by_path = {}
+    dirs = {d: os.path.join(workdir, f"demo_cube_{d}")
+            for d in ("cuda", "cpu")}
+    t = time.monotonic()
+    _, launches = counted(demo_cube.main, ["--out", dirs["cuda"],
+                                           "--device", "cuda"])
+    card_s = time.monotonic() - t
+    demo_cube.main(["--out", dirs["cpu"], "--device", "cpu"])
+    by_path["demo_cube"] = launches["raster_tile"]
+    defaults = demo_cube.parse_args([])
+    check(failures, launches == {"raster_tile": 2 * defaults.views,
+                                 "raster_dense": 0},
+          f"demo_cube: launches {launches}")
+    n = same_files(failures, "demo_cube", dirs["cuda"], dirs["cpu"])
+    card_vs_cpu_ids(failures, "demo_cube",
+                    data.Ply(os.path.join(dirs["cpu"], "cube.ply")),
+                    testing.make_ring_cameras(
+                        num_views=defaults.views, width=defaults.size,
+                        height=defaults.size), device)
+    phase(f"phase 10: demo_cube (s={defaults.subdivisions}, "
+          f"{defaults.views} views of {defaults.size}x{defaults.size}) "
+          f"{card_s:.1f} s on the card, launches {launches}; its {n} files "
+          "card == CPU byte for byte, ids card == CPU")
+
+    sub, views, width, height, _ = SCENES["default"]
+    root = os.path.join(workdir, "colorize_mesh")
+    vertices, faces = testing.make_cube(sub)
+    os.makedirs(root)
+    write_mesh(os.path.join(root, "mesh.ply"), vertices, faces)
+    bench.write_workspace(root, views=views, width=width, height=height,
+                          cam_model="PINHOLE")
+    mesh, ws = data.Ply(os.path.join(root, "mesh.ply")), data.Colmap(
+        os.path.join(root, "ws"))
+    cams = [ws.getCamera(i) for i in range(views)]
+    palette = np.stack([np.arange(19) * 13 % 256, np.arange(19) * 29 % 256,
+                        np.arange(19) * 53 % 256], -1).astype(np.uint8)
+    palette[0] = 7
+    masks = os.path.join(root, "masks")
+    os.makedirs(masks)
+    from semantic_meshes_torch import render
+
+    cpu = render.triangles(mesh, device="cpu")
+    for i, cam in enumerate(cams):
+        ids = cpu.render(cam)[0].view(torch.int32).numpy().T
+        img = np.zeros(ids.shape + (3,), np.uint8)
+        img[ids >= 0] = palette[(ids[ids >= 0] * 7) % 19]
+        imwrite(os.path.join(masks, ws.getImageName(i)), img)
+    plys = {}
+    for d in ("cuda", "cpu"):
+        plys[d] = os.path.join(root, f"{d}.ply")
+        args = ["--colmap", os.path.join(root, "ws"), "--input_ply",
+                os.path.join(root, "mesh.ply"), "--masks", masks,
+                "--classes", str(REMAP_CLASSES), "--output_ply", plys[d],
+                "--remap", "--device", d]
+        t = time.monotonic()
+        if d == "cuda":
+            _, launches = counted(colorize_mesh.main, args)
+        else:
+            colorize_mesh.main(args)
+        phase(f"phase 10: colorize_mesh --remap on the {d} "
+              f"({len(faces)} triangles, {views} views of {width}x{height}):"
+              f" {time.monotonic() - t:.1f} s")
+    by_path["colorize_mesh"] = launches["raster_tile"]
+    check(failures, launches == {"raster_tile": views, "raster_dense": 0},
+          f"colorize_mesh: launches {launches}")
+    with open(plys["cuda"], "rb") as f, open(plys["cpu"], "rb") as g:
+        check(failures, f.read() == g.read(),
+              "colorize_mesh: PLY card != CPU")
+    card_vs_cpu_ids(failures, "colorize_mesh", mesh, cams, device)
+    phase(f"phase 10: colorize_mesh --remap PLY card == CPU byte for byte, "
+          f"launches {launches}, ids card == CPU")
+    return by_path
+
+
+def eval_cli_leg(workdir, failures):
+    """The eval entry point on the card through its own CLI: the kill test
+    (SIGKILL at the first manifest, resume == straight, exactly) and
+    bench_eval at its defaults."""
+    kill = run_script("resume_killtest", [
+        "--workdir", os.path.join(workdir, "killtest"), "--device", "cuda"],
+        "resume_killtest", failures)
+    check(failures, kill is not None and kill["killtest"] == "PASS",
+          f"resume_killtest: {kill}")
+    return kill, run_script("bench_eval", [
+        "--keep", os.path.join(workdir, "bench_eval"), "--device", "cuda"],
+        "bench_eval", failures)
+
+
+def scripts_phase(device, card):
+    """Phase 10. Returns (launches_by_path additions per kernel, the
+    largest kernel vs plain error)."""
+    import PIL
+
+    t10 = time.monotonic()
+    found = {m: importlib.util.find_spec(m) is not None
+             for m in ("matplotlib", "imageio", "yaml", "tqdm")}
+    phase(f"phase 10 [{card}]: this machine's Python {sys.version.split()[0]}"
+          f", Pillow {PIL.__version__}, importable: {found}")
+    failures = []
+    with tempfile.TemporaryDirectory() as workdir:
+        city = os.path.join(workdir, "city")
+        dense, err, _ = cityscapes_demo(device, city, failures)
+        precompute_leg(device, workdir, failures)
+        dense.update(annotations_leg(device, city, failures))
+        shutil.rmtree(city)
+        tile = tile_scripts_leg(device, workdir, failures)
+        torch.cuda.empty_cache()
+        eval_cli_leg(workdir, failures)
+    if failures:
+        raise AssertionError(f"phase 10: {len(failures)} gates failed: "
+                             + "; ".join(failures))
+    phase(f"phase 10 took {time.monotonic() - t10:.1f} s")
+    return {"raster_dense": dense, "raster_tile": tile}, err
+
+
 def parse_args():
     parser = argparse.ArgumentParser(
         description="Chip smoke run of semantic_meshes_torch on one card.")
@@ -4311,6 +4852,10 @@ def parse_args():
              "predictors: card vs CPU, bench.py's e2e, the ScanNet RGBD "
              "eval, the PSPNet demo; training and the ScanNet eval entry "
              "point); prints no kernel line")
+    parser.add_argument(
+        "--scripts-only", action="store_true",
+        help="run phases 1, 2 and 10 only (the user scripts and the "
+             "ScanNet drivers at full width); prints no kernel line")
     parser.add_argument(
         "--against", action="append", default=[], metavar="DIR",
         help="a checkout of an earlier commit (its semantic_meshes_torch/ "
@@ -4355,12 +4900,14 @@ def main():
             phase(f"phase 2: built {name}{' of ' + label if label else ''}"
                   ": " + " | ".join(report))
 
-    if args.sharded_only or args.models_only:
+    if args.sharded_only or args.models_only or args.scripts_only:
         if args.sharded_only:
             multi_gpu(device, card)
         if args.models_only:
             models_phase(device, card)
             training_phase(device, card)
+        if args.scripts_only:
+            scripts_phase(device, card)
         phase(f"done in {time.monotonic() - t0:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -4465,6 +5012,10 @@ def main():
         by_path[kernel].update(paths)
     for kernel, paths in training_phase(device, card).items():
         by_path[kernel].update(paths)
+    script_paths, script_err = scripts_phase(device, card)
+    for kernel, paths in script_paths.items():
+        by_path[kernel].update(paths)
+    dense_err = max(dense_err, script_err)
 
     def indoor_row(path, row):
         keys = ("ms", "launched_ms", "plain_ms", "bound_ms", "bound_by",

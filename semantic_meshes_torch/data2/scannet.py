@@ -117,9 +117,9 @@ class RGBDFrame:
         return self.decompress_color_jpeg()
 
     def decompress_color_jpeg(self):
-        import imageio.v2 as imageio
+        from ..io.image import imread
 
-        return imageio.imread(self.color_data)
+        return imread(self.color_data)
 
     def decompress_depth(self, compression_type="zlib_ushort"):
         if compression_type != "zlib_ushort":
@@ -318,24 +318,24 @@ class SensFile:
         )
 
     def export_depth_images(self, output_path, image_size=None, frame_skip=1):
-        import imageio.v2 as imageio
+        from ..io.image import imwrite
 
         os.makedirs(output_path, exist_ok=True)
         for i in range(0, len(self.frames), frame_skip):
             depth = self.depth_image(self.frames[i])
             if image_size is not None:
                 depth = _resize_nearest(depth, image_size)
-            imageio.imwrite(os.path.join(output_path, f"{i}.png"), depth)
+            imwrite(os.path.join(output_path, f"{i}.png"), depth)
 
     def export_color_images(self, output_path, image_size=None, frame_skip=1):
-        import imageio.v2 as imageio
+        from ..io.image import imwrite
 
         os.makedirs(output_path, exist_ok=True)
         for i in range(0, len(self.frames), frame_skip):
             color = self.frames[i].decompress_color(self.color_compression_type)
             if image_size is not None:
                 color = _resize_nearest(color, image_size)
-            imageio.imwrite(os.path.join(output_path, f"{i}.jpg"), color)
+            imwrite(os.path.join(output_path, f"{i}.jpg"), color)
 
     def export_poses(self, output_path, frame_skip=1):
         os.makedirs(output_path, exist_ok=True)

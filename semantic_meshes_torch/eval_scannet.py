@@ -19,9 +19,9 @@ the CLI's file IO: `parse_args`, `find_scenes`, `make_predictor`,
 `read_label_map` / `load_gt_labels`, `metric_group`, `Session` (the
 metric groups, timers and the checkpoint manifest across scenes),
 `evaluate_scene` (the per-scene core: decoded frames in, metrics and the
-aggregator out) and `run` (the CLI). `imageio` (PNG labels, JPEG colour,
-debug images) and `yaml` are imported by `run` and the readers only;
-`evaluate_scene` needs neither. The XLA-specific flags `--compile_cache`
+aggregator out) and `run` (the CLI). `io.image` (Pillow: PNG labels,
+JPEG colour, debug images) and `yaml` are imported by `run` and the
+readers only; `evaluate_scene` needs neither. The XLA-specific flags `--compile_cache`
 and `--no_face_buckets` are accepted and do nothing: the port compiles no
 XLA, and face bucketing is not ported.
 """
@@ -284,9 +284,9 @@ def read_label_map(tsv_path):
 def load_gt_labels(scene, index, label_map):
     """label-filt/<index>.png (raw ids, colour resolution) as int32 nyu40
     labels with -1 = ignore."""
-    import imageio.v2 as imageio
+    from .io.image import imread
 
-    gt = imageio.imread(os.path.join(scene, "label-filt", f"{index}.png"))
+    gt = imread(os.path.join(scene, "label-filt", f"{index}.png"))
     gt = np.clip(gt, 0, len(label_map) - 1)
     return label_map[gt.astype(np.int64)].astype(np.int32)
 
@@ -658,8 +658,9 @@ def _prefetched(fn, items, workers=4, depth=PREFETCH):
     """fn over items in order on a thread pool, at most `depth` ahead."""
     items = iter(items)
     with ThreadPoolExecutor(max_workers=workers) as pool:
+        # range first: zip stops at it before pulling one more item
         pending = collections.deque(
-            pool.submit(fn, item) for item, _ in zip(items, range(depth)))
+            pool.submit(fn, item) for _, item in zip(range(depth), items))
         while pending:
             result = pending.popleft().result()
             for item in items:
@@ -672,8 +673,9 @@ def run(args):
     """The CLI: every scene of --scannet through evaluate_scene, the
     per-scene report, the YAML `run-<i>.yaml` in --output and the
     timings. Returns the exit code (0)."""
-    import imageio.v2 as imageio
     import yaml
+
+    from .io.image import imwrite
 
     device = resolve_device(args.device)
     scenes = find_scenes(args)
@@ -741,7 +743,7 @@ def run(args):
             predict, session, args,
             labels=lambda index, scene=scene: load_gt_labels(
                 scene, index, label_map),
-            vertex_gt=vertex_gt, imwrite=imageio.imwrite)
+            vertex_gt=vertex_gt, imwrite=imwrite)
 
         # per-scene report (ref: eval_scannet.py:322-326)
         row, headers = [scene_index + 1], ["Scenes"]

@@ -153,17 +153,17 @@ def build_synthetic_scannet_scene(root, name, *, subdivisions=3,
 
     Returns (num_faces, num_views). The gt label images are rendered by
     `renderer`, or by a port TrianglesRenderer on `device` (the CPU by
-    default). imageio writes the PNGs and JPEGs.
+    default). io.image (Pillow, with imageio's save parameters) writes
+    the PNGs and JPEGs.
     """
     import io
     import os
     import zlib
 
-    import imageio.v2 as imageio
-
     from . import data as sm_data
     from . import render as sm_render
     from .data2.scannet import write_sens
+    from .io.image import imwrite
 
     root = os.fspath(root)
     scene = os.path.join(root, "scans", name)
@@ -212,7 +212,7 @@ def build_synthetic_scannet_scene(root, name, *, subdivisions=3,
         covered = idx_hw != 0xFFFFFFFF
         gt = np.zeros((H, W), np.uint16)
         gt[covered] = face_class_nyu[idx_hw[covered].astype(np.int64)]
-        imageio.imwrite(
+        imwrite(
             os.path.join(scene, "label-filt", f"{i}.png"), gt
         )
 
@@ -240,7 +240,7 @@ def build_synthetic_scannet_scene(root, name, *, subdivisions=3,
         color[covered] = 128
         depth = np.full((H, W), 1000, np.uint16)
         buf = io.BytesIO()
-        imageio.imwrite(buf, color, format="jpeg")
+        imwrite(buf, color, format="jpeg")
         frames.append(
             dict(
                 camera_to_world=c2w,

@@ -363,3 +363,14 @@ def test_evaluate_scene_in_process_equals_the_cli(scannet_dir, tmp_path):
     got = {"metrics": session.results(),
            "params": eval_scannet.result_params(args)}
     _assert_same_results(got, want)
+
+
+@pytest.mark.parametrize("n", [0, 3, 8, 9, 20])
+def test_the_frame_loader_yields_every_frame_in_order(n):
+    """run's prefetching loader (at most 8 frames ahead) yields every
+    frame once, in order; it used to drop the ninth frame of a scene, the
+    one zip pulled past its depth."""
+    frames = [(i, f"camera {i}") for i in range(n)]
+    got = list(eval_scannet._prefetched(lambda item: item[0], frames,
+                                        workers=3, depth=8))
+    assert got == list(range(n))

@@ -264,3 +264,98 @@ def test_package_data_ships_every_kernel_source():
     assert {"csrc/raster_common.cuh", "csrc/sens_io.cpp"} <= set(sources)
     for src in sources:
         assert any(fnmatch.fnmatch(src, g) for g in globs), src
+
+
+SCRIPTS = {
+    "colorize_mesh": ["--colmap", "ws", "--input_ply", "m.ply", "--masks",
+                      "masks", "--classes", "3", "--output_ply", "o.ply"],
+    "render_annotations": ["--colmap", "ws", "--input_ply", "m.ply",
+                           "--classes", "3", "--output_dir", "out"],
+    "precompute_probs": ["--images", "images", "--out", "out"],
+    "colorize_cityscapes_mesh": ["--colmap", "ws", "--input_ply", "m.ply",
+                                 "--images", "images", "--output_ply",
+                                 "o.ply"],
+    "demo_cube": ["--out", "out"],
+    "debug_render_texels": ["--output", "out"],
+    "make_paper_graphs": ["--out", "out"],
+    "bench_cityscapes": [],
+    "bench_eval": [],
+    "resume_killtest": [],
+}
+# drivers whose own work is on the host: they take no --device
+HOST_SCRIPTS = {
+    "create_scannet_eval_graphs": ["--path", "results"],
+    "run_colmap_on_scannet": ["--scannet", "scannet"],
+    "simplify_scannet_meshes": ["--scannet", "scannet", "--factor", "0.5"],
+}
+
+
+def test_every_module_imports_without_jax_or_imageio():
+    """Every module of the port, the scripts included, imports in a
+    process where JAX, the JAX package and imageio cannot be imported."""
+    import pkgutil
+
+    names = sorted(m.name for m in pkgutil.walk_packages(
+        [str(PKG)], prefix="semantic_meshes_torch."))
+    assert {f"semantic_meshes_torch.scripts.{s}"
+            for s in {**SCRIPTS, **HOST_SCRIPTS}} | {
+        "semantic_meshes_torch.io.image"} <= set(names)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {FORBIDDEN + ('imageio',)!r}:\n"
+        "    sys.modules[m] = None\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    for path in PKG.rglob("*.py"):
+        assert "imageio" not in [m.split(".")[0] for m in _imports(path)], \
+            path
+
+
+@pytest.mark.parametrize("name", sorted(SCRIPTS))
+def test_scripts_default_to_the_card_without_fallback(tmp_path, monkeypatch,
+                                                      name):
+    """Each script's --device defaults to cuda; its main raises without a
+    card unless asked for the CPU."""
+    import importlib
+
+    module = importlib.import_module(f"semantic_meshes_torch.scripts.{name}")
+    assert module.parse_args(SCRIPTS[name]).device == "cuda"
+    assert module.parse_args(SCRIPTS[name] + ["--device", "cpu"]).device \
+        == "cpu"
+    if torch.cuda.is_available():
+        return
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(RuntimeError, match="is_available"):
+        module.main(SCRIPTS[name])
+    assert not os.listdir(tmp_path)  # nothing was written
+
+
+@pytest.mark.parametrize("name", sorted(HOST_SCRIPTS))
+def test_host_drivers_take_no_device_flag(name):
+    """The COLMAP, MeshLab and graph drivers work on the host only: they
+    parse their JAX script's flags and refuse --device."""
+    import importlib
+
+    module = importlib.import_module(f"semantic_meshes_torch.scripts.{name}")
+    assert not hasattr(module.parse_args(HOST_SCRIPTS[name]), "device")
+    with pytest.raises(SystemExit):
+        module.parse_args(HOST_SCRIPTS[name] + ["--device", "cpu"])
+
+
+def test_graph_script_fails_without_matplotlib(tmp_path, monkeypatch):
+    """Without matplotlib the graph script fails before it reads or
+    writes anything, as the JAX script (which imports it at the top)
+    does."""
+    from semantic_meshes_torch.scripts import create_scannet_eval_graphs
+
+    monkeypatch.setitem(sys.modules, "matplotlib", None)
+    with pytest.raises(ImportError):
+        create_scannet_eval_graphs.main(["--path", str(tmp_path)])
+    assert not os.listdir(tmp_path)
