@@ -2,7 +2,7 @@
 """Chip smoke run of semantic_meshes_torch on one CUDA card (sm_90a).
 
     python3 chip_smoke.py [--against DIR ...] [--sharded-only]
-                          [--models-only] [--scripts-only]
+                          [--models-only] [--scripts-only] [--bench-only]
 
 Drives the port's main paths through their public entry points, at six
 of bench.py's presets, their distorted variants and their indoor
@@ -222,7 +222,26 @@ each phase prints a line and raises on failure:
    `launches_by_path` gains the six in-process paths. --scripts-only runs
    phases 1, 2 and 10 alone and prints no kernel line.
 
-No earlier path was cut to make room for phases 7 to 10.
+11. the port's measuring surface: `python -m semantic_meshes_torch.bench`
+   as a child process (the default preset with every sub-preset, then
+   `--preset large` and `--preset e2e`), its JSON lines printed and
+   gated: the headline first and every line of one value, no sub-preset
+   skipped, every overflow 0, the launches of a batch (raster_tile once a
+   view at `default` and `large`, raster_dense once a view at `scannet`,
+   `texels` and `texels01` and 4 at `e2e`, none at `dense`); the bench's
+   seconds_per_batch beside phase 5's batch (large, scannet, dense,
+   texels, texels01) and its e2e_image_time beside phase 8's, with their
+   ratios (printed, not gated: one card's batches move between calls);
+   graft_entry.entry() on the card == on the CPU (rtol 2e-5, atol 1e-5)
+   and graft_entry.dryrun_multichip(1), an NCCL world of one (under
+   --sharded-only with two or more cards, one rank a card); every
+   microbench (semantic_meshes_torch.scripts.microbench_*, every probe of
+   microbench_segment_sum) in process at its default sizes, its JSON
+   lines printed. `launches_by_path` gains "bench <preset>", "graft
+   entry" and each microbench. --bench-only runs phases 1, 2 and 11
+   alone and prints no kernel line.
+
+No earlier path was cut to make room for phases 7 to 11.
 
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
@@ -2199,7 +2218,8 @@ def batch_throughput(name, ctx, device, card, label=None):
     """rasterize_fuse_throughput of one batch at preset `name`
     (fuse_views_planned, or ctx's own "batch" and "entry": a texel
     preset's fuse_views_texels, a distorted variant's fusion), and one
-    traced batch. label: the variant's name (default `name`). The batch's
+    traced batch; returns the batch's ms. label: the variant's name
+    (default `name`). The batch's
     time is the median of 5 after 2 warm-ups, or ctx's "batch_ms" where
     phase 4 timed a batch whose extended lenses make every run cost
     seconds."""
@@ -2234,6 +2254,7 @@ def batch_throughput(name, ctx, device, card, label=None):
                    "dense_e_cap": getattr(ctx.get("plan"), "dense_e_cap",
                                           None)},
     }), flush=True)
+    return batch_ms
 
 
 def batches_in_turns(label_a, fn_a, label_b, fn_b, card):
@@ -3587,7 +3608,8 @@ def tile_scene_vs_plain(label, renderer, cams, device):
 def e2e_preset(device, card, workdir):
     """bench.py's e2e preset through the port: texels, the UNet's softmax
     as fuse_views_texels' predict_fn on raw uint8 views, sum fusion.
-    Returns raster_dense's launches in the run the counters read."""
+    Returns (raster_dense's launches in the run the counters read,
+    e2e_image_time in ms)."""
     import semantic_meshes_torch as smt
     from semantic_meshes_torch.models import segmentation
 
@@ -3700,7 +3722,7 @@ def e2e_preset(device, card, workdir):
                    "predict_ms": predict_ms, "conv_tflop": flops / 1e12,
                    "bf16_peak_share": share, "peak_gb": peak_gb}}),
           flush=True)
-    return launches["raster_dense"]
+    return launches["raster_dense"], image_ms
 
 
 def rgbd_scannet(device, card):
@@ -3819,17 +3841,19 @@ def pspnet_demo(device, card):
 
 
 def models_phase(device, card):
-    """Phase 8. Returns launches_by_path additions per kernel."""
+    """Phase 8. Returns (launches_by_path additions per kernel,
+    e2e_image_time in ms)."""
     t8 = time.monotonic()
     resizes_card_vs_cpu(device, card)
     models_card_vs_cpu(device, card)
     groupnorm_times(device, card)
     with tempfile.TemporaryDirectory() as workdir:
-        e2e = e2e_preset(device, card, workdir)
+        e2e, e2e_ms = e2e_preset(device, card, workdir)
     rgbd = rgbd_scannet(device, card)
     pspnet_demo(device, card)
     phase(f"phase 8 took {time.monotonic() - t8:.1f} s")
-    return {"raster_dense": {"e2e": e2e, "scannet RGBD eval": rgbd}}
+    return ({"raster_dense": {"e2e": e2e, "scannet RGBD eval": rgbd}},
+            e2e_ms)
 
 
 # ---------------------------------------------------------------- phase 9
@@ -4390,12 +4414,12 @@ def run_script(module, args, label, failures):
     return result
 
 
-def check(failures, ok, message):
-    """Record a failed gate (every gate of phase 10 runs; the phase raises
-    at its end)."""
+def check(failures, ok, message, tag="phase 10"):
+    """Record a failed gate (every gate of phases 10 and 11 runs; the
+    phase raises at its end)."""
     if not ok:
         failures.append(message)
-        phase(f"phase 10: FAILED: {message}")
+        phase(f"{tag}: FAILED: {message}")
     return ok
 
 
@@ -4837,6 +4861,196 @@ def scripts_phase(device, card):
     return {"raster_dense": dense, "raster_tile": tile}, err
 
 
+# ------------------------------------------------------------------ phase 11
+# the port's measuring surface: its bench (python -m
+# semantic_meshes_torch.bench, bench.py's CLI and JSON lines) in child
+# processes, the driver entry (semantic_meshes_torch.graft_entry) and the
+# microbenches (semantic_meshes_torch.scripts.microbench_*) in process at
+# their JAX scripts' default sizes
+BENCH_TIMEOUT_S = 600
+# the presets phase 5 times (and phase 8, e2e), whose times phase 11
+# prints beside the bench's
+PHASE5_PRESETS = ("large", "scannet", "dense", "texels", "texels01")
+MICROBENCHES = ("microbench_scannet", "microbench_dense",
+                "microbench_microrows", "microbench_tile_fusion")
+
+
+def bench_launches(preset):
+    """The launches of one bench batch: each view through raster_tile at
+    the tile presets, through raster_dense at the dense ones with pairs,
+    none at `dense` (all micro)."""
+    from semantic_meshes_torch import bench
+
+    if preset == "e2e":
+        return {"raster_tile": 0, "raster_dense": bench.E2E["views"]}
+    views = bench.PRESETS[preset][1]
+    tile = preset in ("small", "default", "large")
+    dense = preset in ("scannet", "texels", "texels01")
+    return {"raster_tile": views * tile, "raster_dense": views * dense}
+
+
+def run_bench(args, failures):
+    """`python -m semantic_meshes_torch.bench ARGS` on the card: its JSON
+    lines (printed here), [] on failure."""
+    t = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "semantic_meshes_torch.bench"] + args,
+        env=script_env(), cwd=HERE, capture_output=True, text=True,
+        timeout=BENCH_TIMEOUT_S)
+    label = " ".join(args) or "(default)"
+    out = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    print("\n".join(out), flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-3000:], flush=True)
+        check(failures, False, f"bench {label}: rc {proc.returncode}",
+              "phase 11")
+        return []
+    phase(f"phase 11: bench {label}: {len(out)} lines "
+          f"({time.monotonic() - t:.1f} s); stderr: "
+          + " | ".join(proc.stderr.strip().splitlines()[-6:]))
+    return [json.loads(ln) for ln in out]
+
+
+def bench_records(lines, failures):
+    """{preset: (MPix/s, seconds_per_batch, overflow, launches)} of the
+    default run (headline first, then one line per sub-preset), gating
+    the lines' structure."""
+    from semantic_meshes_torch import bench
+
+    subs = bench.SUB_PRESETS
+    check(failures, len(lines) == 1 + len(subs),
+          f"bench: {len(lines)} lines, expected 1 + {len(subs)}", "phase 11")
+    if not lines:
+        return {}
+    head, last = lines[0]["detail"], lines[-1]["detail"]
+    check(failures, head["preset"] == "default"
+          and "skipped" not in head
+          and not any(f"{s}_MPix_s" in head for s in subs),
+          "bench: the first line is not the bare headline", "phase 11")
+    check(failures, len({ln["value"] for ln in lines}) == 1,
+          "bench: the lines' values differ", "phase 11")
+    check(failures, last.get("skipped") == [],
+          f"bench: skipped {last.get('skipped')}", "phase 11")
+    records = {"default": (lines[0]["value"], head["seconds_per_batch"],
+                           head["overflow"], head["launches"])}
+    for s in subs:
+        if f"{s}_MPix_s" in last:
+            records[s] = tuple(last[f"{s}_{k}"] for k in (
+                "MPix_s", "seconds_per_batch", "overflow", "launches"))
+    return records
+
+
+def graft_check(card):
+    """graft_entry.entry() on the card == the same fn on the CPU, and the
+    dry run in an NCCL world of one. Returns raster_tile's launches of
+    the card's fn."""
+    from semantic_meshes_torch import graft_entry
+
+    fn, args = graft_entry.entry()
+    out, launches = counted(fn, *args)
+    fn_cpu, args_cpu = graft_entry.entry(device="cpu")
+    ref = fn_cpu(*args_cpu)
+    if tuple(out.shape) != (300, 19) or not torch.allclose(
+            out.cpu(), ref, rtol=graft_entry.RTOL, atol=graft_entry.ATOL):
+        raise AssertionError(
+            f"graft entry: card {tuple(out.shape)} != CPU (max |err| "
+            f"{float((out.cpu() - ref).abs().max())})")
+    if launches != {"raster_tile": 2, "raster_dense": 0}:
+        raise AssertionError(f"graft entry: launches {launches}")
+    phase(f"phase 11 [{card}]: graft_entry.entry() on the card == on the "
+          f"CPU (rtol {graft_entry.RTOL}, atol {graft_entry.ATOL}; max |err| "
+          f"{float((out.cpu() - ref).abs().max()):.3e}), (300, 19), "
+          f"launches {launches}")
+    graft_dryrun(card, 1)
+    return launches["raster_tile"]
+
+
+def graft_dryrun(card, n):
+    """graft_entry.dryrun_multichip(n): n NCCL ranks, one a card."""
+    from semantic_meshes_torch import graft_entry
+
+    t = time.monotonic()
+    logs = graft_entry.dryrun_multichip(n)
+    cases = [ln for ln in logs[0].splitlines() if ln.startswith("rank 0")]
+    phase(f"phase 11 [{card}]: dryrun_multichip({n}) ok, an NCCL world of "
+          f"{n} ({time.monotonic() - t:.1f} s): " + "; ".join(cases))
+
+
+def microbenches(card):
+    """Every microbench's main in process at its default sizes; their
+    launches per kernel (the timing loops' included)."""
+    from semantic_meshes_torch.scripts.microbench_segment_sum import PROBES
+
+    paths = {"raster_tile": {}, "raster_dense": {}}
+    runs = [(m, []) for m in MICROBENCHES] + [
+        ("microbench_segment_sum", ["--probe", p]) for p in PROBES]
+    for module, argv in runs:
+        mod = importlib.import_module(f"semantic_meshes_torch.scripts."
+                                      f"{module}")
+        t = time.monotonic()
+        _, launches = counted(mod.main, argv)
+        torch.cuda.empty_cache()
+        label = " ".join([module] + argv)
+        phase(f"phase 11 [{card}]: {label} ok ({time.monotonic() - t:.1f} "
+              f"s), launches {launches}")
+        for kernel, n in launches.items():
+            if n:
+                paths[kernel][label] = n
+    return paths
+
+
+def bench_phase(device, card, phase5, e2e_ms):
+    """Phase 11. phase5: {preset: batch ms} of phase 5 (empty when it did
+    not run), e2e_ms: phase 8's e2e_image_time (or None). Returns
+    launches_by_path additions per kernel."""
+    t11 = time.monotonic()
+    torch.cuda.empty_cache()
+    failures = []
+    records = bench_records(run_bench([], failures), failures)
+    for args in (["--preset", "large"], ["--preset", "e2e"]):
+        lines = run_bench(args, failures)
+        check(failures, len(lines) == 1,
+              f"bench {' '.join(args)}: {len(lines)} lines", "phase 11")
+        if lines:
+            d = lines[0]["detail"]
+            records[args[1]] = (lines[0]["value"], d.get(
+                "seconds_per_batch"), d["overflow"], d["launches"])
+    paths = {"raster_tile": {}, "raster_dense": {}}
+    for preset, (value, spb, overflow, launches) in records.items():
+        want = bench_launches(preset)
+        check(failures, overflow == 0, f"bench {preset}: overflow "
+              f"{overflow}", "phase 11")
+        check(failures, launches == want, f"bench {preset}: launches "
+              f"{launches}, expected {want}", "phase 11")
+        for kernel, n in launches.items():
+            paths[kernel][f"bench {preset}"] = n
+    missing = {"default", "large", "e2e", *PHASE5_PRESETS} - set(records)
+    check(failures, not missing, f"bench: no record of {sorted(missing)}",
+          "phase 11")
+    for preset in PHASE5_PRESETS:
+        if preset in records and preset in phase5:
+            bench_ms = records[preset][1] * 1e3
+            phase(f"phase 11 [{card}]: {preset}: the bench's "
+                  f"seconds_per_batch {bench_ms:.6f} ms, phase 5's batch "
+                  f"{phase5[preset]:.6f} ms, ratio "
+                  f"{bench_ms / phase5[preset]:.6f}")
+    if "e2e" in records and e2e_ms is not None:
+        phase(f"phase 11 [{card}]: e2e: the bench's e2e_image_time "
+              f"{records['e2e'][0]:.6f} ms/image, phase 8's {e2e_ms:.6f}, "
+              f"ratio {records['e2e'][0] / e2e_ms:.6f}")
+    if not phase5:
+        phase("phase 11: phases 5 and 8 did not run in this call: no "
+              "ratios against them")
+    paths["raster_tile"]["graft entry"] = graft_check(card)
+    for kernel, more in microbenches(card).items():
+        paths[kernel].update(more)
+    if failures:
+        raise AssertionError(f"phase 11: {len(failures)} gates failed: "
+                             + "; ".join(failures))
+    phase(f"phase 11 took {time.monotonic() - t11:.1f} s")
+    return paths
+
+
 def parse_args():
     parser = argparse.ArgumentParser(
         description="Chip smoke run of semantic_meshes_torch on one card.")
@@ -4856,6 +5070,10 @@ def parse_args():
         "--scripts-only", action="store_true",
         help="run phases 1, 2 and 10 only (the user scripts and the "
              "ScanNet drivers at full width); prints no kernel line")
+    parser.add_argument(
+        "--bench-only", action="store_true",
+        help="run phases 1, 2 and 11 only (the port's bench, its driver "
+             "entry and the microbenches); prints no kernel line")
     parser.add_argument(
         "--against", action="append", default=[], metavar="DIR",
         help="a checkout of an earlier commit (its semantic_meshes_torch/ "
@@ -4900,14 +5118,19 @@ def main():
             phase(f"phase 2: built {name}{' of ' + label if label else ''}"
                   ": " + " | ".join(report))
 
-    if args.sharded_only or args.models_only or args.scripts_only:
+    if (args.sharded_only or args.models_only or args.scripts_only
+            or args.bench_only):
         if args.sharded_only:
             multi_gpu(device, card)
+            if torch.cuda.device_count() >= 2:
+                graft_dryrun(card, torch.cuda.device_count())
         if args.models_only:
             models_phase(device, card)
             training_phase(device, card)
         if args.scripts_only:
             scripts_phase(device, card)
+        if args.bench_only:
+            bench_phase(device, card, {}, None)
         phase(f"done in {time.monotonic() - t0:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -4947,8 +5170,8 @@ def main():
                                                  "dense")[1]],
                      against, card)
     large_times(large, device, card)
-    batch_throughput("large", large, device, card)
-    batch_throughput("scannet", scannet, device, card)
+    phase5 = {name: batch_throughput(name, ctx, device, card)
+              for name, ctx in (("large", large), ("scannet", scannet))}
     by_path = {
         "raster_tile": {"large": large["launches"],
                         "default texels": default_texels["raster_tile"]},
@@ -4971,11 +5194,11 @@ def main():
     by_path["raster_dense"]["scannet indoor + clip + SIMPLE_RADIAL"] = \
         indoor_lens["launches"]["raster_dense"]
     del large, scannet
-    batch_throughput("dense", dense_ctx, device, card)
+    phase5["dense"] = batch_throughput("dense", dense_ctx, device, card)
     del dense_ctx
     for name, ctx in texels.items():
         texel_times(name, ctx, device, card)
-        batch_throughput(name, ctx, device, card)
+        phase5[name] = batch_throughput(name, ctx, device, card)
     del texels
     lens_times(large_lens, scannet_lens, device, card)
     batch_throughput("scannet", scannet_lens, device, card,
@@ -5008,7 +5231,8 @@ def main():
                                                             band_dense_err)
     for kernel, paths in sharded.items():
         by_path[kernel].update(paths)
-    for kernel, paths in models_phase(device, card).items():
+    model_paths, e2e_ms = models_phase(device, card)
+    for kernel, paths in model_paths.items():
         by_path[kernel].update(paths)
     for kernel, paths in training_phase(device, card).items():
         by_path[kernel].update(paths)
@@ -5016,6 +5240,8 @@ def main():
     for kernel, paths in script_paths.items():
         by_path[kernel].update(paths)
     dense_err = max(dense_err, script_err)
+    for kernel, paths in bench_phase(device, card, phase5, e2e_ms).items():
+        by_path[kernel].update(paths)
 
     def indoor_row(path, row):
         keys = ("ms", "launched_ms", "plain_ms", "bound_ms", "bound_by",

@@ -9,7 +9,9 @@ anecdotes and tqdm only). Here:
 - `annotate(name)`: a phase of the module's global timers,
 - `trace_to(dir, device)`: a trace of the host and, on a CUDA device, of
   the card, written as a Chrome trace `dir/trace.json` (viewable in
-  perfetto).
+  perfetto),
+- `times_ms(fn, reps, device)`: each call's time, from CUDA events on a
+  card (the bench and the microbenches time with it).
 """
 
 from __future__ import annotations
@@ -102,6 +104,33 @@ def annotate(name):
 
 def report():
     return _global_timers.report()
+
+
+def times_ms(fn, reps, device, warmup=0):
+    """The time in ms of each of `reps` calls of fn(), after `warmup`
+    calls left untimed. On a CUDA device: the device's time between CUDA
+    events recorded on the current stream before and after the call,
+    read after it synchronizes (the host's clock would time the enqueue).
+    On the CPU: the host's clock around the call, the CPU's own time
+    (its ops run synchronously)."""
+    device = torch.device(device)
+    for _ in range(warmup):
+        fn()
+    out = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+    return out
 
 
 @contextlib.contextmanager

@@ -14,7 +14,12 @@ runs as `python -m semantic_meshes_torch.scripts.<name>`:
   simplify_scannet_meshes: the ScanNet drivers (the last two drive the
   external `colmap` and `meshlabserver` binaries and need no card);
 - bench_cityscapes, bench_eval, resume_killtest: timings of the demo and
-  of the eval entry point, and the eval's SIGKILL resume check.
+  of the eval entry point, and the eval's SIGKILL resume check;
+- microbench_scannet, microbench_dense, microbench_microrows,
+  microbench_tile_fusion: the JAX microbenches' pieces of a dense view,
+  timed on the port; microbench_segment_sum: the six segment-sum probes
+  (microbench_scatter{,2,3,4}, microbench_exact16,
+  microbench_mxu_crossover) in one script with `--probe`.
 
 Images are read and written by `io.image` (Pillow); nothing here imports
 imageio. The modules import nothing at package import time.
