@@ -238,10 +238,27 @@ each phase prints a line and raises on failure:
    microbench (semantic_meshes_torch.scripts.microbench_*, every probe of
    microbench_segment_sum) in process at its default sizes, its JSON
    lines printed. `launches_by_path` gains "bench <preset>", "graft
-   entry" and each microbench. --bench-only runs phases 1, 2 and 11
-   alone and prints no kernel line.
+   entry" and each microbench;
+12. face bucketing (render._face_bucket), each path with the counters set
+   to 0 just before it and read just after: the cube at s=3 (108 faces,
+   padded to 1024 rows) on `default`'s views through raster_tile == the
+   unbucketed renders, and raster_tile == plain on the padded rows; the
+   cube at s=35 (14700 faces, padded to 16384 = DENSE_THRESHOLD) on
+   `scannet`'s 8 views of 1296x968 through raster_dense == the unbucketed
+   renderer forced dense, raster_dense == plain on every view, overflow
+   0, no id of a padding row, beside the unbucketed tile route's dropped
+   pairs and valid pixels and the two dense renderers timed in turns;
+   `scannet`'s own mesh (99372 faces, padded to 114688) bucketed ==
+   unbucketed, timed in turns; texels at 0.1 a pixel on the s=35 cube,
+   bucketed == unbucketed forced dense; the eval CLI at its defaults
+   (bucketed) on a fake ScanNet scene of that cube (4 frames of
+   640x480): raster_dense launches, no raster_tile, the fused colours
+   card == CPU, beside --no_face_buckets (raster_tile, its overflow, the
+   faces whose colour moves). `launches_by_path` gains each path.
+   --bench-only runs phases 1, 2, 11 and 12 alone and prints no kernel
+   line.
 
-No earlier path was cut to make room for phases 7 to 11.
+No earlier path was cut to make room for phases 7 to 12.
 
 --against DIR (repeatable) names a checkout of an earlier commit, e.g.
     mkdir -p build/parent && git archive <rev> semantic_meshes_torch |
@@ -4313,8 +4330,11 @@ def trained_fusion_scene(device, card):
     if result["overflow"]:
         raise AssertionError(f"trained fusion scene: overflow "
                              f"{result['overflow']}")
-    checked = tile_scene_vs_plain("trained fusion scene", renderer, cams,
-                                  device)
+    # the eval builds its renderer bucketed (108 faces -> 1024 rows): hold
+    # the kernel to plain on those rows
+    checked = tile_scene_vs_plain(
+        "trained fusion scene",
+        smt.render.triangles(mesh, bucket=True, device=device), cams, device)
     metrics = session.results()
     net = metrics["image_network"]["mean_iou"]
     fused = metrics["image_fused"]["mean_iou"]
@@ -4325,8 +4345,9 @@ def trained_fusion_scene(device, card):
           f"triangles, {n} frames of {W}x{H}, RGBDUNet{widths} loss "
           f"{first:.6f} -> {last:.6f} in {SMALL_STEPS} steps; raster_tile "
           f"{launches['raster_tile']} launches (2 a frame), overflow 0, "
-          f"raster_tile == plain on its {checked} views (ids equal, depths "
-          f"bit-equal); network mIoU {net:.6f}, fused {fused:.6f}")
+          f"raster_tile == plain on its {checked} views at the eval's "
+          f"bucketed rows (ids equal, depths bit-equal); network mIoU "
+          f"{net:.6f}, fused {fused:.6f}")
     return launches["raster_tile"]
 
 
@@ -5051,6 +5072,315 @@ def bench_phase(device, card, phase5, e2e_ms):
     return paths
 
 
+# ------------------------------------------------------------------ phase 12
+# face, vertex and camera-count bucketing (render._face_bucket): padding
+# rows render nothing, but a renderer routes on its padded face count, so
+# the cube at s=35 (14700 faces, padded to 16384 = DENSE_THRESHOLD) takes
+# raster_dense bucketed, as the JAX package routes it on its accelerator,
+# and raster_tile (256 candidates a tile) unbucketed. The eval CLI
+# buckets by default (--no_face_buckets turns it off).
+BUCKET_SUB = 35
+BUCKET_FACES = 14700
+BUCKET_ROWS = 16384
+BUCKET_TPP = 0.1
+# the eval CLI's fake scene (testing.build_synthetic_scannet_scene): the
+# s=35 cube, frames at the eval's depth size, clean one-hot predictions
+BUCKET_EVAL = dict(num_views=4, width=640, height=480)
+
+
+def cube_mesh(sub):
+    from semantic_meshes_torch import testing
+
+    vertices, faces = testing.make_cube(subdivisions=sub)
+    return SimpleNamespace(vertices=vertices, faces=faces)
+
+
+def render_all(renderer, cams):
+    """Every view's (ids (W, H) int32, depth) through renderer.render."""
+    return [(i.view(torch.int32), d) for i, d in
+            (renderer.render(c) for c in cams)]
+
+
+def same_renders(name, got, want):
+    """Two renders of the same views: ids equal, depths bit-equal."""
+    for k, ((ik, zk), (ip, zp)) in enumerate(zip(got, want)):
+        assert_same_image(name, k, zk, ik, zp, ip)
+
+
+def bucketed_small(device, card):
+    """The 108-face cube (s=3) on `default`'s views, padded to 1024 rows:
+    raster_tile once a view, == the unbucketed renders, == plain on the
+    padded rows. Returns (raster_tile launches, the kernel's error)."""
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch.rasterize import tile_kernel
+
+    _, _, cams = scene("default")
+    mesh = cube_mesh(3)
+    plain = smt.render.triangles(mesh, bucket=False, device=device)
+    padded = smt.render.triangles(mesh, bucket=True, device=device)
+    rows = (padded.faces.shape[0], padded.vertices.shape[0])
+    if rows != (1024, 1024) or padded.getPrimitivesNum() != 108:
+        raise AssertionError(f"bucketed cube s=3: {rows} rows")
+    got, launches = counted(render_all, padded, cams)
+    expect_launches("bucketed cube s=3", launches, "raster_tile", len(cams))
+    same_renders("bucketed cube s=3", got, render_all(plain, cams))
+    err = 0.0
+    for k, cam in enumerate(cams):
+        args, overflow = view_inputs(padded.face_vertices, cam, device)
+        zk, ik = tile_kernel.resolve_tiles_cuda(*args)
+        zp, ip = tile_kernel.resolve_tiles_plain(*args)
+        torch.cuda.synchronize()
+        if int(overflow):
+            raise AssertionError(f"bucketed cube s=3 view {k}: overflow")
+        err = max(err, assert_same_image("bucketed cube s=3", k, zk, ik, zp,
+                                         ip))
+    phase(f"phase 12 [{card}]: cube s=3 bucketed (108 faces -> 1024 rows, "
+          f"1024 vertex rows) at default ({len(cams)} views of "
+          f"{cams[0].resolution[0]}x{cams[0].resolution[1]}): raster_tile "
+          f"{launches['raster_tile']} launches, == unbucketed (ids equal, "
+          "depths bit-equal), == plain on the padded rows")
+    return launches["raster_tile"], err
+
+
+def bucketed_scannet(device, card):
+    """The s=35 cube at `scannet`'s 8 views of 1296x968: bucketed through
+    raster_dense (== the unbucketed render forced dense, == plain on every
+    view, overflow 0, no id at or past 14700); unbucketed through
+    raster_tile, its dropped pairs and valid pixels beside; bucketed
+    against unbucketed dense timed in turns. Returns (launches by path,
+    the kernel's error)."""
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch.rasterize import dense_kernel
+
+    _, _, cams = scene("scannet")
+    mesh = cube_mesh(BUCKET_SUB)
+    hw = (cams[0].resolution[1], cams[0].resolution[0])
+    padded = smt.render.triangles(mesh, bucket=True, device=device)
+    if (padded.faces.shape[0] != BUCKET_ROWS
+            or padded.getPrimitivesNum() != BUCKET_FACES
+            or smt.rasterize.check_backend(BUCKET_ROWS) != "dense"):
+        raise AssertionError(f"bucketed s=35: {padded.faces.shape[0]} rows")
+    padded.prepare(cams)
+    cap = padded.dense_cap_policy._cap[hw]
+    got, launches = counted(render_all, padded, cams)
+    expect_launches("bucketed s=35", launches, "raster_dense", len(cams))
+    if padded.overflow_total():
+        raise AssertionError(f"bucketed s=35: overflow "
+                             f"{padded.overflow_total()}")
+    top = max(int(i.max()) for i, _ in got)
+    if top >= BUCKET_FACES:
+        raise AssertionError(f"bucketed s=35: id {top} of a padding row")
+    dense = smt.render.triangles(mesh, bucket=False, backend="dense",
+                                 device=device)
+    same_renders("bucketed s=35 vs unbucketed dense", got,
+                 render_all(dense, cams))
+    err = 0.0
+    for k, cam in enumerate(cams):
+        args, _, overflow = dense_view_inputs(padded.face_vertices, cam, cap,
+                                              device)
+        zk, ik = dense_kernel.resolve_dense_cuda(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        torch.cuda.synchronize()
+        if int(overflow):
+            raise AssertionError(f"bucketed s=35 view {k}: overflow "
+                                 f"{int(overflow)}")
+        err = max(err, assert_same_image("bucketed s=35", k, zk, ik, zp, ip))
+    tile = smt.render.triangles(mesh, bucket=False, device=device)
+    old, tile_launches = counted(render_all, tile, cams)
+    expect_launches("unbucketed s=35", tile_launches, "raster_tile",
+                    len(cams))
+    dropped = tile.overflow_total()
+    valid = [int((i >= 0).sum()) for i, _ in got]
+    kept = [int((i >= 0).sum()) for i, _ in old]
+    differ = sum(int((a[0] != b[0]).sum()) for a, b in zip(old, got))
+    ms = render_turns(padded, dense, cams)
+    phase(f"phase 12 [{card}]: cube s=35 bucketed ({BUCKET_FACES} faces -> "
+          f"{BUCKET_ROWS} rows) at scannet ({len(cams)} views of "
+          f"{hw[1]}x{hw[0]}, budget {cap}): raster_dense "
+          f"{launches['raster_dense']} launches, overflow 0, == unbucketed "
+          "forced dense (ids equal, depths bit-equal), raster_dense == plain "
+          f"on every view, largest id {top}; unbucketed (the tile route): "
+          f"raster_tile {tile_launches['raster_tile']} launches, {dropped} "
+          f"candidate pairs dropped, {sum(kept)} of {sum(valid)} valid pixels "
+          f"kept ({sum(kept) / sum(valid):.6f}; per view {kept} of {valid}), "
+          f"{differ} pixels differ; render_many launched ms a view, "
+          f"bucketed against unbucketed dense: {ms}")
+    return ({"raster_dense": {"s=35 bucketed at scannet":
+                              launches["raster_dense"]},
+             "raster_tile": {"s=35 unbucketed at scannet":
+                             tile_launches["raster_tile"]}}, err)
+
+
+def render_turns(padded, plain, cams, rounds=4):
+    """render_many of every view through a bucketed and an unbucketed
+    renderer in turns (a b b a, `rounds` times), each turn the median of 5
+    (CUDA events around Python launching): the median launched ms a view
+    of each, the ratio, and the ratio's range over the rounds."""
+    turns = {"bucketed": [], "unbucketed": []}
+    for _ in range(rounds):
+        for name, r in (("bucketed", padded), ("unbucketed", plain),
+                        ("unbucketed", plain), ("bucketed", padded)):
+            turns[name].append(cuda_time_ms(lambda: r.render_many(cams), 5)
+                               / len(cams))
+    ratios = [b / u for b, u in zip(turns["bucketed"], turns["unbucketed"])]
+    ms = {k: statistics.median(v) for k, v in turns.items()}
+    return {**{k: round(v, 6) for k, v in ms.items()},
+            "ratio": round(ms["bucketed"] / ms["unbucketed"], 6),
+            "ratio_range": [round(min(ratios), 6), round(max(ratios), 6)]}
+
+
+def bucketed_eval_scale(device, card):
+    """The padding's cost at the eval's own scale: `scannet`'s mesh (cube
+    s=91, 99372 faces, padded to 114688 rows) on its 8 views, bucketed
+    against unbucketed (both raster_dense), in turns; the renders equal."""
+    import semantic_meshes_torch as smt
+
+    vertices, faces, cams = scene("scannet")
+    mesh = SimpleNamespace(vertices=vertices, faces=faces)
+    padded = smt.render.triangles(mesh, bucket=True, device=device)
+    plain = smt.render.triangles(mesh, bucket=False, device=device)
+    for r in (padded, plain):
+        r.prepare(cams)
+    same_renders("bucketed scannet", render_all(padded, cams),
+                 render_all(plain, cams))
+    ms = render_turns(padded, plain, cams)
+    phase(f"phase 12 [{card}]: scannet's mesh bucketed ({len(faces)} faces "
+          f"-> {padded.faces.shape[0]} rows) == unbucketed on its "
+          f"{len(cams)} views; render_many launched ms a view, bucketed "
+          f"against unbucketed: {ms}")
+
+
+def bucketed_texels(device, card):
+    """Texels at BUCKET_TPP a pixel on the s=35 cube at `scannet`'s views:
+    bucketed (16384 rows, cameras padded to 16) through raster_dense ==
+    unbucketed forced dense. Returns raster_dense's launches."""
+    import semantic_meshes_torch as smt
+
+    _, _, cams = scene("scannet")
+    mesh = cube_mesh(BUCKET_SUB)
+    padded = smt.render.texels(mesh, cams, BUCKET_TPP, bucket=True,
+                               device=device)
+    dense = smt.render.texels(mesh, cams, BUCKET_TPP, bucket=False,
+                              backend="dense", device=device)
+    P = dense.getPrimitivesNum()
+    res = padded.resolutions
+    if (padded.getPrimitivesNum() != P or res.shape[0] != BUCKET_ROWS
+            or not torch.equal(res[:BUCKET_FACES], dense.resolutions)
+            or bool((res[BUCKET_FACES:] != 0).any())):
+        raise AssertionError("bucketed texels: tables differ from the "
+                             "unbucketed renderer's")
+    padded.prepare(cams)
+    got, launches = counted(render_all, padded, cams)
+    expect_launches("bucketed s=35 texels", launches, "raster_dense",
+                    len(cams))
+    same_renders("bucketed s=35 texels", got, render_all(dense, cams))
+    if padded.overflow_total():
+        raise AssertionError("bucketed s=35 texels: overflow")
+    covered = sum(int((i >= 0).sum()) for i, _ in got)
+    phase(f"phase 12 [{card}]: texels at {BUCKET_TPP} a pixel on cube s=35 "
+          f"bucketed ({P} texels, resolutions of the "
+          f"{BUCKET_ROWS - BUCKET_FACES} padding rows 0): raster_dense "
+          f"{launches['raster_dense']} "
+          f"launches, == unbucketed forced dense on {len(cams)} views "
+          f"({covered} texel pixels), overflow 0")
+    return launches["raster_dense"]
+
+
+def eval_cli_fused(root, label, extra, device):
+    """eval_scannet's CLI in process on the fake scene under `root`, output
+    to root/label, its evaluate_scene results kept: (results,
+    launches)."""
+    from semantic_meshes_torch import eval_scannet
+
+    results = []
+    core = eval_scannet.evaluate_scene
+
+    def keep(*args, **kwargs):
+        results.append(core(*args, **kwargs))
+        return results[-1]
+
+    argv = ["--scannet", root, "--model", "probs", "--probs_dir",
+            os.path.join(root, "probs"), "--aggregator", "sum", "--output",
+            os.path.join(root, label), "--device", device] + extra
+    eval_scannet.evaluate_scene = keep
+    try:
+        out, launches = counted(eval_scannet.main, argv)
+    finally:
+        eval_scannet.evaluate_scene = core
+    if out != 0 or len(results) != 1:
+        raise AssertionError(f"eval CLI {extra}: rc {out}, "
+                             f"{len(results)} scenes")
+    return results[0], launches
+
+
+def bucketed_eval_cli(device, card):
+    """The eval CLI at its defaults on a fake ScanNet scene of the s=35
+    cube: bucketed, so raster_dense and no raster_tile; the fused colours
+    on the card == on the CPU; beside it --no_face_buckets (raster_tile,
+    its overflow and the faces whose colour moves). Returns launches by
+    path."""
+    from semantic_meshes_torch import eval_scannet, testing
+    from semantic_meshes_torch.utils import class_palette
+
+    palette = torch.as_tensor(class_palette(eval_scannet.CLASSES))
+    with tempfile.TemporaryDirectory() as root:
+        testing.write_scannet_label_tsv(
+            os.path.join(root, "scannetv2-labels.combined.tsv"))
+        os.makedirs(os.path.join(root, "scans"))
+        faces, views = testing.build_synthetic_scannet_scene(
+            root, "scene0000_00", subdivisions=BUCKET_SUB, device=device,
+            **BUCKET_EVAL)
+        card_run, launches = eval_cli_fused(root, "card", [], str(device))
+        if (launches["raster_dense"] == 0 or launches["raster_tile"] != 0
+                or card_run["overflow"] or card_run["primitives"] != faces):
+            raise AssertionError(f"eval CLI defaults: launches {launches}, "
+                                 f"overflow {card_run['overflow']}")
+        cpu_run, _ = eval_cli_fused(root, "cpu", [], "cpu")
+        fused, fused_cpu = card_run["fused"].cpu(), cpu_run["fused"]
+        colours = palette[fused.argmax(-1)]
+        if not torch.equal(colours, palette[fused_cpu.argmax(-1)]):
+            raise AssertionError("eval CLI defaults: fused colours card != "
+                                 "CPU")
+        gap = float((fused - fused_cpu).abs().max())
+        if gap > 1e-5 * max(float(fused_cpu.abs().max()), 1.0):
+            raise AssertionError(f"eval CLI defaults: fused card vs CPU "
+                                 f"max |d| {gap}")
+        off, off_launches = eval_cli_fused(
+            root, "unbucketed", ["--no_face_buckets"], str(device))
+        moved = int((palette[off["fused"].cpu().argmax(-1)] != colours)
+                    .any(-1).sum())
+    phase(f"phase 12 [{card}]: eval CLI at its defaults on a fake scene "
+          f"(cube s={BUCKET_SUB}, {faces} faces, {views} frames of "
+          f"{BUCKET_EVAL['width']}x{BUCKET_EVAL['height']}): raster_dense "
+          f"{launches['raster_dense']} launches, raster_tile 0, overflow 0, "
+          f"fused colours card == CPU (max |d| {gap}); --no_face_buckets: "
+          f"raster_tile {off_launches['raster_tile']} launches, overflow "
+          f"{off['overflow']}, {moved} of {faces} face colours differ")
+    return {"raster_dense": {"eval CLI defaults, s=35":
+                             launches["raster_dense"]},
+            "raster_tile": {"eval CLI --no_face_buckets, s=35":
+                            off_launches["raster_tile"]}}
+
+
+def bucketing_phase(device, card):
+    """Phase 12. Returns (launches_by_path additions per kernel, the
+    largest kernel vs plain error of each kernel)."""
+    t12 = time.monotonic()
+    paths = {"raster_tile": {}, "raster_dense": {}}
+    n, tile_err = bucketed_small(device, card)
+    paths["raster_tile"]["cube s=3 bucketed at default"] = n
+    more, dense_err = bucketed_scannet(device, card)
+    for kernel, p in more.items():
+        paths[kernel].update(p)
+    bucketed_eval_scale(device, card)
+    paths["raster_dense"]["s=35 texels 0.1 bucketed at scannet"] = \
+        bucketed_texels(device, card)
+    for kernel, p in bucketed_eval_cli(device, card).items():
+        paths[kernel].update(p)
+    phase(f"phase 12 took {time.monotonic() - t12:.1f} s")
+    return paths, tile_err, dense_err
+
+
 def parse_args():
     parser = argparse.ArgumentParser(
         description="Chip smoke run of semantic_meshes_torch on one card.")
@@ -5072,8 +5402,9 @@ def parse_args():
              "ScanNet drivers at full width); prints no kernel line")
     parser.add_argument(
         "--bench-only", action="store_true",
-        help="run phases 1, 2 and 11 only (the port's bench, its driver "
-             "entry and the microbenches); prints no kernel line")
+        help="run phases 1, 2, 11 and 12 only (the port's bench, its "
+             "driver entry and the microbenches; face bucketing); prints no "
+             "kernel line")
     parser.add_argument(
         "--against", action="append", default=[], metavar="DIR",
         help="a checkout of an earlier commit (its semantic_meshes_torch/ "
@@ -5131,6 +5462,7 @@ def main():
             scripts_phase(device, card)
         if args.bench_only:
             bench_phase(device, card, {}, None)
+            bucketing_phase(device, card)
         phase(f"done in {time.monotonic() - t0:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -5242,6 +5574,12 @@ def main():
     dense_err = max(dense_err, script_err)
     for kernel, paths in bench_phase(device, card, phase5, e2e_ms).items():
         by_path[kernel].update(paths)
+    bucket_paths, bucket_tile_err, bucket_dense_err = bucketing_phase(
+        device, card)
+    for kernel, paths in bucket_paths.items():
+        by_path[kernel].update(paths)
+    tile_err = max(tile_err, bucket_tile_err)
+    dense_err = max(dense_err, bucket_dense_err)
 
     def indoor_row(path, row):
         keys = ("ms", "launched_ms", "plain_ms", "bound_ms", "bound_by",

@@ -21,9 +21,12 @@ metric groups, timers and the checkpoint manifest across scenes),
 `evaluate_scene` (the per-scene core: decoded frames in, metrics and the
 aggregator out) and `run` (the CLI). `io.image` (Pillow: PNG labels,
 JPEG colour, debug images) and `yaml` are imported by `run` and the
-readers only; `evaluate_scene` needs neither. The XLA-specific flags `--compile_cache`
-and `--no_face_buckets` are accepted and do nothing: the port compiles no
-XLA, and face bucketing is not ported.
+readers only; `evaluate_scene` needs neither. Both renderers are built
+with face bucketing on, as the JAX entry point builds them
+(`render._face_bucket`: a mesh of 14337-16383 faces pads to 16384 rows
+and takes the dense rasterizer); `--no_face_buckets` turns it off. The
+XLA-specific flag `--compile_cache` is accepted and does nothing: the
+port compiles no XLA.
 """
 
 from __future__ import annotations
@@ -129,9 +132,11 @@ def build_parser():
                         help="Accepted for the JAX entry point's command "
                         "lines; does nothing (the port compiles no XLA)")
     parser.add_argument("--no_face_buckets", action="store_true",
-                        help="Accepted for the JAX entry point's command "
-                        "lines; does nothing (face bucketing is not ported: "
-                        "it only shares XLA compilations there)")
+                        help="Disable face-count bucketing (bucketing pads "
+                        "each mesh to a coarse size bucket with degenerate "
+                        "faces; the rasterizer is picked at the padded "
+                        "count, so a mesh of 14337-16383 faces takes the "
+                        "dense one)")
     parser.add_argument("--clip_near", action="store_true",
                         help="Near-plane clip instead of culling triangles "
                         "that cross z=0 (recommended for indoor scenes)")
@@ -468,8 +473,9 @@ def evaluate_scene(name, mesh, cameras, frames, predict, session, args, *,
     fused re-render pass. vertex_gt: read_vertex_gt's (face -> vertices,
     raw vertex labels), or None to skip the vertex metrics (texel mode, a
     COLMAP or simplified mesh). args: parse_args' namespace (mode,
-    aggregator, images_equal_weight, texel_resolution, clip_near, cache,
-    checkpoint_every, crash_after, debug, timings, device). imwrite(path,
+    aggregator, images_equal_weight, texel_resolution, clip_near,
+    no_face_buckets, cache, checkpoint_every, crash_after, debug, timings,
+    device). imwrite(path,
     image): writes --debug images. on_ids(pass, index, ids (W, H)): sees
     every id image of the fuse pass ("fuse") and the re-render ("fused").
 
@@ -496,10 +502,13 @@ def evaluate_scene(name, mesh, cameras, frames, predict, session, args, *,
     frame_cams = [cam for _, cam in cameras]
     if args.mode == "triangles":
         renderer = render.triangles(mesh, clip_near=args.clip_near,
+                                    bucket=not args.no_face_buckets,
                                     device=device)
     else:
         renderer = render.texels(mesh, frame_cams, args.texel_resolution,
-                                 clip_near=args.clip_near, device=device)
+                                 clip_near=args.clip_near,
+                                 bucket=not args.no_face_buckets,
+                                 device=device)
     # size the dense candidate budgets over every frame at once, so no
     # frame breaches them mid-scene
     renderer.prepare(frame_cams)

@@ -15,15 +15,29 @@ from __future__ import annotations
 
 import torch
 
+# the JAX package's f32-class methods (semantic_meshes/ops.py:314-362); all
+# of them take the one route here
+METHODS = (None, "exact16", "float32", "mxu")
 
-def segment_sum(data, idx, num_segments):
+
+def segment_sum(data, idx, num_segments, method=None):
     """Sum rows of `data` (N, D) f32 (or (N,)) into `num_segments` segments
     by `idx` (N,) integer; rows with an index outside [0, num_segments)
     are dropped. Returns (num_segments, D) (or (num_segments,)).
 
+    method: one of the JAX package's f32-class names (METHODS), each the
+    same deterministic route; "bfloat16", its lossy scatter, is refused.
     Dropped rows sort after every segment and lie past the last offset,
     so the segmented sum never reads them.
     """
+    if method == "bfloat16":
+        raise ValueError(
+            "segment_sum method 'bfloat16' is the JAX package's lossy "
+            "scatter (bf16 values, ~0.8% error); the port sums in float32 "
+            "only: pass None, 'exact16', 'float32' or 'mxu'")
+    if method not in METHODS:
+        raise ValueError(f"unknown segment_sum method {method!r}; expected "
+                         f"one of {METHODS}")
     squeeze = data.ndim == 1
     if squeeze:
         data = data[:, None]

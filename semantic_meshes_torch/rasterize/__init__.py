@@ -8,29 +8,54 @@ Counterpart of `semantic_meshes/rasterize/__init__.py`. Two backends:
   `dense` / `dense_kernel`, for meshes of DENSE_THRESHOLD faces or more.
 
 Each z-resolve is a CUDA kernel for CUDA tensors and its plain PyTorch
-version for CPU tensors. `backend="tile"|"dense"` forces a backend.
+version for CPU tensors. `backend="tile"|"dense"` forces a backend; the
+JAX package's names are accepted too: "pallas" and "xla", its two
+tile-binned rasterizers, both name "tile".
+
+Routing follows the JAX package's rule on its accelerator
+(`semantic_meshes/rasterize/__init__.py:21-32`), whatever the tensors'
+device: the SM_RASTERIZER environment variable ("tile", "dense", "pallas"
+or "xla"; other values are ignored) picks the backend of every call that
+names none, else meshes of DENSE_THRESHOLD faces or more (16384, or
+SM_DENSE_THRESHOLD read at import) go to `dense` and the rest to `tile`.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from . import dense, dense_kernel, tile_kernel, tiles  # noqa: F401
 from .tiles import barycentrics_at_pixels  # noqa: F401
 
-DENSE_THRESHOLD = 16384
-BACKENDS = ("tile", "dense")
+DENSE_THRESHOLD = int(os.environ.get("SM_DENSE_THRESHOLD", 16384))
+# every accepted backend name -> the port's backend ("tile" or "dense")
+BACKEND_NAMES = {"tile": "tile", "dense": "dense", "pallas": "tile",
+                 "xla": "tile"}
 Z_NEAR = tiles.Z_NEAR
 
 
+def default_backend(num_tris=None):
+    """The backend of a call that names none: SM_RASTERIZER when it holds a
+    known name, else dense at DENSE_THRESHOLD faces or more
+    (`semantic_meshes.rasterize.default_backend` on its accelerator)."""
+    env = os.environ.get("SM_RASTERIZER")
+    if env in BACKEND_NAMES:
+        return BACKEND_NAMES[env]
+    if num_tris is not None and num_tris >= DENSE_THRESHOLD:
+        return "dense"
+    return "tile"
+
+
 def check_backend(num_tris, backend=None):
-    """The backend that rasterizes `num_tris` faces: `backend` if given,
-    else dense at DENSE_THRESHOLD faces or more."""
+    """The backend ("tile" or "dense") that rasterizes `num_tris` faces:
+    `backend` if given (a name of BACKEND_NAMES), else default_backend."""
     if backend is None:
-        return "dense" if num_tris >= DENSE_THRESHOLD else "tile"
-    if backend not in BACKENDS:
+        return default_backend(num_tris)
+    if backend not in BACKEND_NAMES:
         raise ValueError(f"unknown rasterizer backend {backend!r}")
-    return backend
+    return BACKEND_NAMES[backend]
 
 
 def uses_dense(backend=None, num_tris=None):

@@ -31,14 +31,19 @@ culling it: the rasterizers resolve the 2T clipped pieces (budgets count
 pieces) and return triangle ids; texel mode sizes straddling triangles by
 their clamped piece areas and shades with the camera-space ray form.
 
-Not ported (see ROADMAP): the face-count bucketing that the JAX package
-uses only to share jit compilations (a texel renderer's `bucket=` is
-accepted and changes nothing).
+`bucket=True` (or `SM_FACE_BUCKETS` set and not "0" when `bucket` is None)
+pads the face and vertex counts up to a coarse bucket (`_face_bucket`) with
+degenerate rows, as the JAX package does, and a texel renderer's sizing
+pads the camera count too. The padding renders nothing, but the renderer
+routes on the padded face count: a mesh of 14337-16383 faces pads to
+DENSE_THRESHOLD and goes to the dense rasterizer, as it does in the JAX
+package on its own device.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 
 import numpy as np
 import torch
@@ -251,6 +256,53 @@ def _dense_routing_probe(face_vertices, rot, trans, fl, pp, *, height, width,
         height=height, width=width, clip_near=clip_near, device=device)
 
 
+def _size_bucket(t: int, floor: int) -> int:
+    """Round a count up to a coarse bucket: at most ~25% padding, 8 buckets
+    per power of two (`semantic_meshes.render._size_bucket`)."""
+    if t <= floor:
+        return floor
+    step = 1 << max(t.bit_length() - 3, 8)
+    return -(-t // step) * step
+
+
+def _face_bucket(t: int) -> int:
+    """The face and vertex count bucket (`semantic_meshes.render.
+    _face_bucket`)."""
+    return _size_bucket(t, 1024)
+
+
+def _bucket_enabled(bucket) -> bool:
+    """bucket, or with None the SM_FACE_BUCKETS environment variable (set
+    and not "0")."""
+    if bucket is None:
+        return os.environ.get("SM_FACE_BUCKETS", "") not in ("", "0")
+    return bool(bucket)
+
+
+def _pad_faces(faces, vertices):
+    """Faces padded up to their bucket with all-zero rows: a padding face
+    is vertex 0 three times, of zero screen area, so setup marks it invalid
+    (denominator 0) and it renders nothing. A mesh without vertices is not
+    padded. Returns (padded faces, the real count)."""
+    t = int(faces.shape[0])
+    target = _face_bucket(t)
+    if target == t or vertices.shape[0] == 0:
+        return faces, t
+    return torch.cat([faces, faces.new_zeros((target - t, 3))]), t
+
+
+def _pad_vertices(vertices):
+    """Vertices padded up to their bucket with zero rows, which no face
+    references (padding faces reference vertex 0). An empty vertex array
+    is not padded."""
+    v = int(vertices.shape[0])
+    target = _face_bucket(v)
+    if target == v or v == 0:
+        return vertices
+    return torch.cat([vertices,
+                      vertices.new_zeros((target - v, vertices.shape[1]))])
+
+
 class TrianglesRenderer:
     """Whole-triangle primitive renderer (primitive index == triangle
     index), on `device` (default "cuda").
@@ -262,12 +314,16 @@ class TrianglesRenderer:
     pick's cost coefficients (alpha, beta, gamma; dense.pick_micro_max).
     clip_near: render the in-front part of triangles that cross the near
     plane (tiles.setup_clipped) instead of culling them; the dense budgets
-    then count the 2T piece rows.
+    then count the 2T piece rows. bucket: pad the vertices, then the
+    faces, up to their `_face_bucket` (None reads SM_FACE_BUCKETS); the
+    backend and the budgets then follow the padded face count, while
+    getPrimitivesNum() stays the real one.
     """
 
     def __init__(self, mesh: Ply, max_tris_per_tile: int = 256,
                  backend: str | None = None, clip_near: bool = False,
-                 micro_max=None, route=None, device="cuda"):
+                 bucket: bool | None = None, micro_max=None, route=None,
+                 device="cuda"):
         rast.dense._check_micro_max(micro_max)
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -278,7 +334,10 @@ class TrianglesRenderer:
             np.asarray(mesh.faces, np.int64), device=self.device
         )
         self._num_faces = int(self.faces.shape[0])
-        rast.check_backend(self._num_faces, backend)
+        if _bucket_enabled(bucket):
+            self.vertices = _pad_vertices(self.vertices)
+            self.faces, _ = _pad_faces(self.faces, self.vertices)
+        rast.check_backend(int(self.faces.shape[0]), backend)
         # pre-expanded face-vertex positions: per-view setup is gather-free
         self.face_vertices = self.vertices[self.faces]
         self.max_tris_per_tile = int(max_tris_per_tile)
@@ -298,13 +357,14 @@ class TrianglesRenderer:
         tile backend. dist: the cameras' lenses (None for pinholes); the
         probe then runs under each view's virtual focal fl * s, the focal
         its render rasterizes with."""
-        if not rast.uses_dense(self.backend, self._num_faces):
+        n_faces = int(self.faces.shape[0])
+        if not rast.uses_dense(self.backend, n_faces):
             return None
         rot, trans, fl, pp = _batch(rot, trans, fl, pp)
         key = (height, width)
         kw = dict(height=height, width=width, clip_near=self.clip_near,
                   device=self.device)
-        rows = self._num_faces * (2 if self.clip_near else 1)
+        rows = n_faces * (2 if self.clip_near else 1)
 
         def cams():
             if dist is None:
@@ -429,7 +489,7 @@ class TrianglesRenderer:
 
 
 def _texel_resolutions(vertices, faces, cameras, texels_per_pixel,
-                       clip_near=False):
+                       clip_near=False, bucket=False):
     """Per-triangle texel grid resolution r = ceil(tpp * sqrt(max screen
     area)) as (T,) int32 on the device of `vertices`.
 
@@ -445,18 +505,30 @@ def _texel_resolutions(vertices, faces, cameras, texels_per_pixel,
     box); otherwise, for straddlers and triangles partly out of frame, the
     summed area of the clipped pieces with their projected vertices
     clamped into the box (a straddler's raw projection is unbounded), so
-    a triangle the clipped rasterizer covers gets texels."""
+    a triangle the clipped rasterizer covers gets texels.
+
+    bucket: pad the camera count up to `_size_bucket(C, 16)`, as the JAX
+    package does, with cameras of identity rotation, zero translation,
+    focal (1, 1), principal point (0, 0) and resolution (0, 0): their
+    border box is empty, so they add zero area under both rules."""
     device = vertices.device
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device)
 
-    rot, trans, fl, pp = (f32(a) for a in stack_cameras(cameras))
-    res = f32(np.asarray([c.resolution for c in cameras], np.float32))
+    cams = [np.asarray(a, np.float32) for a in stack_cameras(cameras)]
+    cams.append(np.asarray([c.resolution for c in cameras], np.float32))
+    n = _size_bucket(len(cameras), 16) - len(cameras) if bucket else 0
+    if n > 0:
+        pad = (np.broadcast_to(np.eye(3, dtype=np.float32), (n, 3, 3)),
+               np.zeros((n, 3), np.float32), np.ones((n, 2), np.float32),
+               np.zeros((n, 2), np.float32), np.zeros((n, 2), np.float32))
+        cams = [np.concatenate([a, b]) for a, b in zip(cams, pad)]
+    rot, trans, fl, pp, res = (f32(a) for a in cams)
     flat = vertices[faces.long()].reshape(-1, 3)  # (3T, 3), gathered once
     max_area = torch.zeros(faces.shape[0], dtype=torch.float32,
                            device=device)
-    for k in range(len(cameras)):
+    for k in range(len(rot)):
         cam = geometry.rigid_transform(rot[k], trans[k], flat)
         lo = -0.5 * res[k]
         hi = 1.5 * res[k]
@@ -500,16 +572,19 @@ class TexelsRenderer(TrianglesRenderer):
     is not touched). Rendering, budgets and overflow are
     TrianglesRenderer's, with each triangle-id image shaded into texel ids;
     pixels of no texel (background, or a triangle no sizing camera saw)
-    read 0xFFFFFFFF. backend and clip_near as in TrianglesRenderer; with
-    clip_near the sizing counts clipped pieces and the shader uses the
-    camera-space ray form; `bucket` is accepted and changes nothing."""
+    read 0xFFFFFFFF. backend, clip_near and bucket as in
+    TrianglesRenderer; with clip_near the sizing counts clipped pieces and
+    the shader uses the camera-space ray form. With bucket the sizing runs
+    on the padded faces and a padded camera set, every padding face gets
+    resolution 0 (no texels), and the texel ids do not change."""
 
     def __init__(self, mesh: Ply, cameras, texels_per_pixel: float = 0.1,
                  max_tris_per_tile: int = 256, backend: str | None = None,
                  clip_near: bool = False, bucket: bool | None = None,
                  device="cuda"):
+        bucket = _bucket_enabled(bucket)
         super().__init__(mesh, max_tris_per_tile, backend, clip_near,
-                         device=device)
+                         bucket=bucket, device=device)
         if isinstance(cameras, Colmap):
             cameras = cameras.getCameras()
         cameras = list(cameras)
@@ -517,7 +592,7 @@ class TexelsRenderer(TrianglesRenderer):
             raise ValueError("texels renderer needs at least one camera")
         self.resolutions = _texel_resolutions(self.vertices, self.faces,
                                               cameras, texels_per_pixel,
-                                              self.clip_near)
+                                              self.clip_near, bucket)
         self.faces = geometry.reorder_faces_for_texels(self.vertices,
                                                        self.faces)
         self.face_vertices = self.vertices[self.faces]
@@ -532,7 +607,8 @@ class TexelsRenderer(TrianglesRenderer):
             first[:-1].astype(np.int32), device=self.device)
         logger.info(
             "Got %d triangles, %d texels and %d triangles without texels",
-            self._num_faces, self._primitive_num, int(np.sum(counts == 0)),
+            self._num_faces, self._primitive_num,
+            int(np.sum(counts[:self._num_faces] == 0)),
         )
 
     def getPrimitivesNum(self) -> int:

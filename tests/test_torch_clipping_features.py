@@ -1,7 +1,7 @@
 """The clip_near=True cases of tests/test_feature_matrix.py and
 tests/test_bucketing.py for semantic_meshes_torch, against the JAX package
 on the CPU: both rasterizers and texel mode under clipping equal JAX's xla
-oracle, and bucketing (which the port does not need) changes nothing.
+oracle, and bucketing changes no output.
 
 Ids compare exactly with JAX run op by op (under jit XLA's FMAs move a
 few edge pixels of triangles that cross the near plane), depths at rtol
@@ -54,7 +54,7 @@ def cube3(tmp_path_factory):
 @pytest.mark.parametrize("backend", [None, "dense"])
 def test_texels_feature_stack(cube3, backend):
     """tests/test_feature_matrix.py's texel stack under clipping: the port
-    (tile or dense, bucket=True accepted and ignored) against JAX's xla
+    (tile or dense, bucketed) against JAX's xla
     oracle, on the cube's well-conditioned texels."""
     mesh, jmesh, cams, jcams = cube3
     base = semantic_meshes.render.texels(jmesh, jcams, 1.5, backend="xla",
@@ -108,9 +108,9 @@ def test_triangles_feature_stack(tmp_path, seed):
 
 def test_bucketed_clip_renders_and_sizing_match(cube3):
     """tests/test_bucketing.py's clip cases: JAX's bucket=True equals its
-    bucket=False under clipping, and the port (which needs no bucketing;
-    a texel renderer accepts bucket= and ignores it) equals both: ids,
-    depths at rtol 2e-5, texel resolutions."""
+    bucket=False under clipping, and the port equals both: ids, depths at
+    rtol 2e-5, texel resolutions (the bucketed port pads as JAX does: its
+    resolutions equal JAX's over the padded rows, 0 on the padding)."""
     mesh, jmesh, cams, jcams = cube3
     want = [semantic_meshes.render.triangles(
         jmesh, clip_near=True, bucket=b).render(jcams[0]) for b in (False,
@@ -128,5 +128,6 @@ def test_bucketed_clip_renders_and_sizing_match(cube3):
     for bucket in (False, True):
         r = render.texels(mesh, cams, 1.5, bucket=bucket, clip_near=True,
                           device="cpu")
-        np.testing.assert_array_equal(r.resolutions.numpy(),
-                                      np.asarray(jr.resolutions)[:n])
+        np.testing.assert_array_equal(
+            r.resolutions.numpy(),
+            np.asarray(jr.resolutions)[:None if bucket else n])

@@ -312,8 +312,11 @@ def test_help_names_the_flags_that_do_nothing():
     text = " ".join(eval_scannet.build_parser().format_help().split())
     for flag in ("--compile_cache", "--no_face_buckets", "--device"):
         assert flag in text
-    assert text.count("does nothing") == 2
-    assert eval_scannet.parse_args(["--scannet", "x"]).device == "cuda"
+    # --compile_cache does nothing; --no_face_buckets disables bucketing
+    assert text.count("does nothing") == 1
+    assert "Disable face-count bucketing" in text
+    args = eval_scannet.parse_args(["--scannet", "x"])
+    assert args.device == "cuda" and args.no_face_buckets is False
 
 
 def test_evaluate_scene_in_process_equals_the_cli(scannet_dir, tmp_path):

@@ -255,19 +255,23 @@ def test_tri_ids_remap_matches_jax():
     _assert_images_match(want, got)
 
 
-def test_dispatch_refuses_dense_size_meshes():
+def test_dispatch_refuses_dense_size_meshes(monkeypatch):
     """Dispatch refuses unknown backends only: a mesh of DENSE_THRESHOLD
-    faces goes to the dense rasterizer unless the tile one is asked for."""
+    faces goes to the dense rasterizer unless the tile one is asked for
+    (by the port's name or the JAX package's, "pallas" or "xla")."""
+    monkeypatch.delenv("SM_RASTERIZER", raising=False)
     n = trast.DENSE_THRESHOLD
     faces = np.zeros((n, 3), np.int32)
     vertices = np.zeros((3, 3), np.float32)
     cam = _random_scene((32, 128))[2]
     assert trast.check_backend(n) == "dense"
     assert trast.check_backend(n - 1) == "tile"
+    assert trast.check_backend(n, "xla") == trast.check_backend(
+        n, "pallas") == "tile"
     with pytest.raises(ValueError, match="unknown rasterizer backend"):
         trast.rasterize(vertices, faces, *cam, height=32, width=128,
-                        backend="xla", device="cpu")
-    for backend in (None, "dense", "tile"):  # degenerate faces: empty
+                        backend="vulkan", device="cpu")
+    for backend in (None, "dense", "tile", "xla"):  # degenerate faces: empty
         ids, _, overflow = trast.rasterize(vertices, faces, *cam, height=32,
                                            width=128, backend=backend,
                                            device="cpu")
