@@ -37,6 +37,7 @@ from . import fusion
 from . import rasterize as rast
 from . import render
 from .data import resolve_device
+from .profiling import annotate, span
 
 
 def view_accumulate(prim_image, probs, weights, images_equal_weight,
@@ -158,53 +159,56 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     pytree), e.g. top-k `(values, indices)` with probs_io.TopKDensify. prim_transform: see
     render_and_accumulate (fuse_views_texels passes its shader).
     """
-    device = resolve_device(device)
-    vertices = fusion._as_f32(vertices, device)
-    faces = torch.as_tensor(faces, dtype=torch.int64, device=device)
-    face_vertices = vertices[faces]  # one gather for all views
-    hoisted = None
-    if distortions is not None:
-        focal_lengths, principal_points, distortions = (
-            fusion._as_f32(a, device)
-            for a in (focal_lengths, principal_points, distortions))
-        if shared_lens:
-            hoisted = render._undistort_grid(
-                focal_lengths[0], principal_points[0], distortions[0],
-                height=height, width=width)
-    if prim_remap is not None:
-        prim_remap = torch.as_tensor(prim_remap, dtype=torch.int32,
-                                     device=device)
-    acc = None
-    overflow = torch.zeros((), dtype=torch.int32, device=device)
-    for i in range(len(rotations)):
-        # a tuple or list of stacks is a pytree of per-view leaves, as the
-        # JAX scan reads it: view i gets every leaf's slice i
-        pr = tuple(leaf[i] for leaf in probs) if isinstance(
-            probs, (tuple, list)) else probs[i]
-        if predict_fn is not None:
-            pr = predict_fn(pr)
-        fl, grid = focal_lengths[i], None
+    with span("smt.fuse_views"):
+        device = resolve_device(device)
+        vertices = fusion._as_f32(vertices, device)
+        faces = torch.as_tensor(faces, dtype=torch.int64, device=device)
+        face_vertices = vertices[faces]  # one gather for all views
+        hoisted = None
         if distortions is not None:
-            grid, s = hoisted if hoisted is not None else \
-                render._undistort_grid(fl, principal_points[i],
-                                       distortions[i], height=height,
-                                       width=width)
-            fl = fl * s  # the rasterizer, shader and gather's focal
-        delta, ov = render_and_accumulate(
-            vertices, faces,
-            (rotations[i], translations[i], fl, principal_points[i]),
-            pr, None if weights is None else weights[i], images_equal_weight,
-            num_primitives=num_primitives, aggregator=aggregator,
-            height=height, width=width, max_tris_per_tile=max_tris_per_tile,
-            prim_transform=prim_transform, face_vertices=face_vertices,
-            clip_near=clip_near, dense_e_cap=dense_e_cap, tri_ids=prim_remap,
-            backend=backend, resample_grid=grid, device=device,
-        )
-        acc = delta if acc is None else acc + delta
-        overflow = overflow + ov
-    if acc is None:
-        raise ValueError("fuse_views needs at least one view")
-    return acc, overflow
+            focal_lengths, principal_points, distortions = (
+                fusion._as_f32(a, device)
+                for a in (focal_lengths, principal_points, distortions))
+            if shared_lens:
+                hoisted = render._undistort_grid(
+                    focal_lengths[0], principal_points[0], distortions[0],
+                    height=height, width=width)
+        if prim_remap is not None:
+            prim_remap = torch.as_tensor(prim_remap, dtype=torch.int32,
+                                         device=device)
+        acc = None
+        overflow = torch.zeros((), dtype=torch.int32, device=device)
+        for i in range(len(rotations)):
+            # a tuple or list of stacks is a pytree of per-view leaves, as
+            # the JAX scan reads it: view i gets every leaf's slice i
+            pr = tuple(leaf[i] for leaf in probs) if isinstance(
+                probs, (tuple, list)) else probs[i]
+            if predict_fn is not None:
+                pr = predict_fn(pr)
+            fl, grid = focal_lengths[i], None
+            if distortions is not None:
+                grid, s = hoisted if hoisted is not None else \
+                    render._undistort_grid(fl, principal_points[i],
+                                           distortions[i], height=height,
+                                           width=width)
+                fl = fl * s  # the rasterizer, shader and gather's focal
+            delta, ov = render_and_accumulate(
+                vertices, faces,
+                (rotations[i], translations[i], fl, principal_points[i]),
+                pr, None if weights is None else weights[i],
+                images_equal_weight, num_primitives=num_primitives,
+                aggregator=aggregator, height=height, width=width,
+                max_tris_per_tile=max_tris_per_tile,
+                prim_transform=prim_transform, face_vertices=face_vertices,
+                clip_near=clip_near, dense_e_cap=dense_e_cap,
+                tri_ids=prim_remap, backend=backend, resample_grid=grid,
+                device=device,
+            )
+            acc = delta if acc is None else acc + delta
+            overflow = overflow + ov
+        if acc is None:
+            raise ValueError("fuse_views needs at least one view")
+        return acc, overflow
 
 
 def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
@@ -237,9 +241,10 @@ def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
                                         dtype=torch.int32, device=device)
 
     def shade(tri, _depth, camera_arrays):
-        return render._texel_prim_image(
-            vertices, faces, *camera_arrays, tri, resolutions,
-            first_texel_index, num_primitives, clip_near=clip_near)
+        with span("smt.texel_shader"):
+            return render._texel_prim_image(
+                vertices, faces, *camera_arrays, tri, resolutions,
+                first_texel_index, num_primitives, clip_near=clip_near)
 
     # the cameras move to the device once; the rasterizer and the shader
     # then read each view's slices in place
@@ -296,54 +301,55 @@ def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
     wires or None; the probes then run under each view's virtual focal
     (render._distortion_scales), the focal its render rasterizes with. A
     few host syncs in all, never one per view."""
-    device = resolve_device(device)
-    faces_t = torch.as_tensor(faces, dtype=torch.int64, device=device)
-    n_rows = int(faces_t.shape[0]) * (2 if clip_near else 1)
-    shared = lens_shared(focal_lengths, principal_points, distortions)
-    if not rast.uses_dense(backend, int(faces_t.shape[0])):
-        return FusePlan(faces_t, None, lens_shared=shared)
-    dense = rast.dense
-    face_vertices = fusion._as_f32(vertices, device)[faces_t]
-    fl = focal_lengths
-    if distortions is not None and np.any(_host(distortions)):
-        s = render._distortion_scales(
-            *(fusion._as_f32(a, device) for a in (
-                focal_lengths, principal_points, distortions)),
-            height=height, width=width)
-        fl = _host(focal_lengths).astype(np.float32) * \
-            s.cpu().numpy()[:, None]
-    cams = (rotations, translations, fl, principal_points)
-    kw = dict(face_vertices=face_vertices, height=height, width=width,
-              device=device)
-    if micro_max is None:
-        curve = dense.routing_stats_batch(None, None, *cams,
-                                          clip_near=clip_near, **kw)
-        pairs, micro, micro_max = dense.pick_route(curve.tolist(), n_rows,
-                                                   **(route or {}))
-    else:
-        pairs, micro = dense.candidate_stats_batch(
-            None, None, *cams, clip_near=clip_near, micro_max=micro_max,
-            **kw).tolist()
+    with annotate("smt.setup.budgets"):
+        device = resolve_device(device)
+        faces_t = torch.as_tensor(faces, dtype=torch.int64, device=device)
+        n_rows = int(faces_t.shape[0]) * (2 if clip_near else 1)
+        shared = lens_shared(focal_lengths, principal_points, distortions)
+        if not rast.uses_dense(backend, int(faces_t.shape[0])):
+            return FusePlan(faces_t, None, lens_shared=shared)
+        dense = rast.dense
+        face_vertices = fusion._as_f32(vertices, device)[faces_t]
+        fl = focal_lengths
+        if distortions is not None and np.any(_host(distortions)):
+            s = render._distortion_scales(
+                *(fusion._as_f32(a, device) for a in (
+                    focal_lengths, principal_points, distortions)),
+                height=height, width=width)
+            fl = _host(focal_lengths).astype(np.float32) * \
+                s.cpu().numpy()[:, None]
+        cams = (rotations, translations, fl, principal_points)
+        kw = dict(face_vertices=face_vertices, height=height, width=width,
+                  device=device)
+        if micro_max is None:
+            curve = dense.routing_stats_batch(None, None, *cams,
+                                              clip_near=clip_near, **kw)
+            pairs, micro, micro_max = dense.pick_route(curve.tolist(), n_rows,
+                                                       **(route or {}))
+        else:
+            pairs, micro = dense.candidate_stats_batch(
+                None, None, *cams, clip_near=clip_near, micro_max=micro_max,
+                **kw).tolist()
 
-    if allow_split and not clip_near:
-        perm, k = dense.uni_order(None, None, *cams, **kw)
-        if k and dense.split_wins(k, n_rows, micro, micro_max):
-            perm_t = torch.as_tensor(perm, device=device)
-            pairs_s = int(dense.candidate_stats_batch(
-                None, None, *cams, micro_split=k, micro_max=micro_max,
-                **dict(kw, face_vertices=face_vertices[perm_t]))[0])
-            return FusePlan(
-                faces_t[perm_t],
-                (dense.BUDGET_MARGIN * pairs_s, 0, micro_max, k),
-                remap=perm_t.to(torch.int32), micro_max=micro_max,
-                split_k=k, lens_shared=shared,
-            )
-    return FusePlan(
-        faces_t,
-        (dense.BUDGET_MARGIN * pairs, dense.BUDGET_MARGIN * micro,
-         micro_max),
-        micro_max=micro_max, lens_shared=shared,
-    )
+        if allow_split and not clip_near:
+            perm, k = dense.uni_order(None, None, *cams, **kw)
+            if k and dense.split_wins(k, n_rows, micro, micro_max):
+                perm_t = torch.as_tensor(perm, device=device)
+                pairs_s = int(dense.candidate_stats_batch(
+                    None, None, *cams, micro_split=k, micro_max=micro_max,
+                    **dict(kw, face_vertices=face_vertices[perm_t]))[0])
+                return FusePlan(
+                    faces_t[perm_t],
+                    (dense.BUDGET_MARGIN * pairs_s, 0, micro_max, k),
+                    remap=perm_t.to(torch.int32), micro_max=micro_max,
+                    split_k=k, lens_shared=shared,
+                )
+        return FusePlan(
+            faces_t,
+            (dense.BUDGET_MARGIN * pairs, dense.BUDGET_MARGIN * micro,
+             micro_max),
+            micro_max=micro_max, lens_shared=shared,
+        )
 
 
 def fuse_views_planned(plan, vertices, rotations, translations,

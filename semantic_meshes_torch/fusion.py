@@ -33,6 +33,7 @@ import torch
 
 from . import ops
 from .data import resolve_device
+from .profiling import span
 
 AGGREGATORS = ("sum", "summax", "mul")
 
@@ -140,33 +141,36 @@ def _accumulate_view(prim, probs, weights, images_equal_weight, *,
     the counts need the whole image (the JAX package's psum over
     `pixels`).
     """
-    P = num_primitives
-    prim_flat = prim.reshape(-1)
-    npix = prim_flat.shape[0]
-    C = probs.shape[-1]
-    in_range = (prim_flat >= 0) & (prim_flat < P)
-    idx = torch.where(in_range, prim_flat, P)
+    with span("smt.fusion"):
+        P = num_primitives
+        prim_flat = prim.reshape(-1)
+        npix = prim_flat.shape[0]
+        C = probs.shape[-1]
+        in_range = (prim_flat >= 0) & (prim_flat < P)
+        idx = torch.where(in_range, prim_flat, P)
 
-    probs_flat = probs.reshape(npix, C)
-    not_dont_care = probs_flat.sum(dim=-1) > DONT_CARE_THRESHOLD
-    pixel_w = (
-        torch.ones(npix, dtype=torch.float32, device=probs.device)
-        if weights is None else weights.reshape(npix)
-    )
-    base_w = torch.where(in_range & not_dont_care, pixel_w,
-                         torch.zeros_like(pixel_w))
-    values = _pixel_values(probs_flat, base_w, aggregator)
-    # trailing column: pixels_per_face over ALL in-range pixels (Mesh.h:90-93)
-    data = torch.cat([values, in_range.to(torch.float32)[:, None]], dim=1)
-    seg = ops.segment_sum(data, idx, P)
-    if group is not None:
-        seg = group.all_reduce(seg)
-    counts = torch.clamp(seg[:, C], min=1.0)
-    # a true division (python's `iew / tensor` is reciprocal-then-multiply)
-    mix = torch.div(torch.full_like(counts, images_equal_weight), counts) + (
-        1.0 - images_equal_weight
-    )
-    return mix[:, None] * seg[:, :C]
+        probs_flat = probs.reshape(npix, C)
+        not_dont_care = probs_flat.sum(dim=-1) > DONT_CARE_THRESHOLD
+        pixel_w = (
+            torch.ones(npix, dtype=torch.float32, device=probs.device)
+            if weights is None else weights.reshape(npix)
+        )
+        base_w = torch.where(in_range & not_dont_care, pixel_w,
+                             torch.zeros_like(pixel_w))
+        values = _pixel_values(probs_flat, base_w, aggregator)
+        # trailing column: pixels_per_face over ALL in-range pixels
+        # (Mesh.h:90-93)
+        data = torch.cat([values, in_range.to(torch.float32)[:, None]],
+                         dim=1)
+        seg = ops.segment_sum(data, idx, P)
+        if group is not None:
+            seg = group.all_reduce(seg)
+        counts = torch.clamp(seg[:, C], min=1.0)
+        # a true division (python's `iew / tensor` is
+        # reciprocal-then-multiply)
+        mix = torch.div(torch.full_like(counts, images_equal_weight),
+                        counts) + (1.0 - images_equal_weight)
+        return mix[:, None] * seg[:, :C]
 
 
 def _get(acc, *, aggregator):
@@ -242,15 +246,16 @@ class MeshAggregator:
         Pixels are summed in (H, W) row-major order, the order of the
         batched pipeline (distributed.fuse_views), so the two give
         bit-identical accumulators."""
-        prim, probs, weights = _flatten_inputs(
-            primitive_indices, probs, weights, self.classes, self.device
-        )
-        self._acc = self._acc + _accumulate_view(
-            prim.t(), probs.transpose(0, 1),
-            None if weights is None else weights.t(),
-            self.images_equal_weight,
-            num_primitives=self.primitives, aggregator=self.aggregator,
-        )
+        with span("smt.add"):
+            prim, probs, weights = _flatten_inputs(
+                primitive_indices, probs, weights, self.classes, self.device
+            )
+            self._acc = self._acc + _accumulate_view(
+                prim.t(), probs.transpose(0, 1),
+                None if weights is None else weights.t(),
+                self.images_equal_weight,
+                num_primitives=self.primitives, aggregator=self.aggregator,
+            )
 
     def add_many(self, primitive_indices, probs, weights=None):
         """Fuse a batch of views: primitive_indices (N, W, H), probs
@@ -296,4 +301,5 @@ class MeshAggregator:
     def merge(self, other_state):
         """Merge a partial accumulator from another shard: elementwise +
         for every aggregator (mul accumulates in log space)."""
-        self._acc = self._acc + _as_f32(other_state, self.device)
+        with span("smt.add"):
+            self._acc = self._acc + _as_f32(other_state, self.device)

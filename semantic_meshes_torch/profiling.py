@@ -4,9 +4,13 @@ Own copy of the JAX package's `semantic_meshes/profiling.py`, on
 `torch.profiler`. The reference has no tracing (SURVEY.md §5: wall-clock
 anecdotes and tqdm only). Here:
 - `PhaseTimers`: per-phase accumulated wall-clock timings with a report()
-  string; each phase is also a `torch.profiler.record_function` range,
-  a user annotation in a trace,
+  string; while a `torch.profiler` runs, each phase is also a
+  `record_function` range, a user annotation in a trace,
 - `annotate(name)`: a phase of the module's global timers,
+- `span(name)`: a range of the hot path (the `smt.*` names, see below):
+  while a profiler runs, `annotate(name)`; otherwise one shared null
+  context, so an untraced call costs one `_profiler_enabled()` check,
+- `timings()`: the global timers' `as_dict()`,
 - `trace_to(dir, device)`: a trace of the host and, on a CUDA device, of
   the card, written as a Chrome trace `dir/trace.json` (viewable in
   perfetto),
@@ -27,6 +31,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from .data import resolve_device
 
 TRACE_FILE = "trace.json"
+_NULL = contextlib.nullcontext()  # reusable: it holds no state
 
 
 class PhaseTimers:
@@ -40,7 +45,8 @@ class PhaseTimers:
 
     @contextlib.contextmanager
     def phase(self, name):
-        with record_function(name):
+        with (record_function(name) if torch.autograd._profiler_enabled()
+              else _NULL):
             t0 = time.perf_counter()
             try:
                 yield
@@ -102,8 +108,21 @@ def annotate(name):
     return _global_timers.phase(name)
 
 
+def span(name):
+    """`annotate(name)` while a torch.profiler runs, else the one shared
+    null context (no clock read, no range, no timer entry)."""
+    if torch.autograd._profiler_enabled():
+        return _global_timers.phase(name)
+    return _NULL
+
+
 def report():
     return _global_timers.report()
+
+
+def timings():
+    """The global timers: {phase: {total_s, calls, median_s}}."""
+    return _global_timers.as_dict()
 
 
 def times_ms(fn, reps, device, warmup=0):

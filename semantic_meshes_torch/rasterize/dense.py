@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from ..data import resolve_device
+from ..profiling import span
 from . import dense_kernel, tile_kernel, tiles
 
 TILE_H = dense_kernel.TILE_H
@@ -317,36 +318,37 @@ def resolve_inputs(vertices, faces, rotation, translation, focal_lengths,
     micro_key is the fragment path's packed image; overflow an int32
     scalar tensor (dropped pairs + dropped micro rows). With clip_near
     every id in them is a piece id (rasterize maps it back)."""
-    _check_args(micro_max, micro_split, micro_cap_rows, clip_near, tri_ids)
-    setup = tiles.setup_inputs(vertices, faces, rotation, translation,
-                               focal_lengths, principal_point, face_vertices,
-                               device, clip_near)
-    T = setup["denom"].shape[0]
-    y_offset = float(y_offset)
-    if tri_ids is not None:
-        tri_ids = torch.as_tensor(tri_ids, dtype=torch.int32,
-                                  device=setup["denom"].device)
-    micro_kw = dict(tri_ids=tri_ids, micro_max=micro_max,
-                    micro_split=micro_split, micro_cap_rows=micro_cap_rows)
-    if e_cap_rows is not None and int(e_cap_rows) == 0:
-        micro, small, big, _, _, span_h, span_w = _classify(
-            setup, height, width, y_offset, micro_max, micro_split)
+    with span("smt.dense_prep"):
+        _check_args(micro_max, micro_split, micro_cap_rows, clip_near, tri_ids)
+        setup = tiles.setup_inputs(vertices, faces, rotation, translation,
+                                   focal_lengths, principal_point,
+                                   face_vertices, device, clip_near)
+        T = setup["denom"].shape[0]
+        y_offset = float(y_offset)
+        if tri_ids is not None:
+            tri_ids = torch.as_tensor(tri_ids, dtype=torch.int32,
+                                      device=setup["denom"].device)
+        micro_kw = dict(tri_ids=tri_ids, micro_max=micro_max,
+                        micro_split=micro_split, micro_cap_rows=micro_cap_rows)
+        if e_cap_rows is not None and int(e_cap_rows) == 0:
+            micro, small, big, _, _, span_h, span_w = _classify(
+                setup, height, width, y_offset, micro_max, micro_split)
+            key, dropped = _micro_key(setup, micro, height, width, y_offset,
+                                      **micro_kw)
+            return None, key, _pair_count(small, big, span_h, span_w) + dropped
+        if e_cap_rows is None:
+            e_cap = _cdiv(max(int(e_cap_factor) * T, CHUNK), CHUNK) * CHUNK
+        else:
+            e_cap = _cdiv(max(int(e_cap_rows), CHUNK), CHUNK) * CHUNK
+        sorted_ids, starts, overflow, micro = _build_sorted_bins(
+            setup, height, width, y_offset, e_cap, n_global, micro_max,
+            micro_split)
         key, dropped = _micro_key(setup, micro, height, width, y_offset,
                                   **micro_kw)
-        return None, key, _pair_count(small, big, span_h, span_w) + dropped
-    if e_cap_rows is None:
-        e_cap = _cdiv(max(int(e_cap_factor) * T, CHUNK), CHUNK) * CHUNK
-    else:
-        e_cap = _cdiv(max(int(e_cap_rows), CHUNK), CHUNK) * CHUNK
-    sorted_ids, starts, overflow, micro = _build_sorted_bins(
-        setup, height, width, y_offset, e_cap, n_global, micro_max,
-        micro_split)
-    key, dropped = _micro_key(setup, micro, height, width, y_offset,
-                              **micro_kw)
-    table = tile_kernel.candidate_table(setup, tri_ids)
-    args = (table, sorted_ids, starts, n_global, key, y_offset,
-            _cdiv(width, TILE_W), height, width)
-    return args, key, overflow + dropped
+        table = tile_kernel.candidate_table(setup, tri_ids)
+        args = (table, sorted_ids, starts, n_global, key, y_offset,
+                _cdiv(width, TILE_W), height, width)
+        return args, key, overflow + dropped
 
 
 def rasterize(vertices, faces, rotation, translation, focal_lengths,

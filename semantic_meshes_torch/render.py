@@ -53,6 +53,7 @@ from . import rasterize as rast
 from .data import (Camera, Colmap, Ply, resolve_device, stack_cameras,
                    stack_distortions)
 from .fusion import _as_f32
+from .profiling import annotate, span
 from .rasterize.dense import _to_i32
 
 logger = logging.getLogger("semantic_meshes_torch")
@@ -442,13 +443,14 @@ class TrianglesRenderer:
 
     def render(self, camera: Camera):
         """(ids (W, H) uint32, depth (W, H) f32) on the renderer's device."""
-        dist = camera.distortion if _has_distortion([camera]) else None
-        hw = _camera_hw(camera)
-        dense_e_cap = self._dense_e_cap(*hw, *_camera_arrays(camera),
-                                        dist=dist)
-        ids, depth, overflow = self._view(camera, dense_e_cap, dist)
-        self._check_overflow(overflow, hw, dense_e_cap)
-        return ids.contiguous().view(torch.uint32), depth.contiguous()
+        with span("smt.render"):
+            dist = camera.distortion if _has_distortion([camera]) else None
+            hw = _camera_hw(camera)
+            dense_e_cap = self._dense_e_cap(*hw, *_camera_arrays(camera),
+                                            dist=dist)
+            ids, depth, overflow = self._view(camera, dense_e_cap, dist)
+            self._check_overflow(overflow, hw, dense_e_cap)
+            return ids.contiguous().view(torch.uint32), depth.contiguous()
 
     def render_many(self, cameras):
         """Render same-resolution cameras: (ids (N, W, H) uint32, depth
@@ -459,15 +461,18 @@ class TrianglesRenderer:
         hw = _camera_hw(cams[0])
         if any(_camera_hw(c) != hw for c in cams):
             raise ValueError("render_many needs equal camera resolutions")
-        lenses = stack_distortions(cams) if _has_distortion(cams) else None
-        dense_e_cap = self._dense_e_cap(*hw, *stack_cameras(cams),
-                                        dist=lenses)
-        out = [self._view(c, dense_e_cap, None if lenses is None else
-                          lenses[k]) for k, c in enumerate(cams)]
-        self._check_overflow(torch.stack([o for _, _, o in out]).sum(), hw,
-                             dense_e_cap)
-        ids = torch.stack([i for i, _, _ in out])
-        return ids.view(torch.uint32), torch.stack([d for _, d, _ in out])
+        with span("smt.render"):
+            lenses = stack_distortions(cams) if _has_distortion(cams) \
+                else None
+            dense_e_cap = self._dense_e_cap(*hw, *stack_cameras(cams),
+                                            dist=lenses)
+            out = [self._view(c, dense_e_cap, None if lenses is None else
+                              lenses[k]) for k, c in enumerate(cams)]
+            self._check_overflow(torch.stack([o for _, _, o in out]).sum(),
+                                 hw, dense_e_cap)
+            ids = torch.stack([i for i, _, _ in out])
+            return ids.view(torch.uint32), torch.stack(
+                [d for _, d, _ in out])
 
     def overflow_total(self) -> int:
         """Total dropped candidate pairs across all renders (syncs once)."""
@@ -481,11 +486,12 @@ class TrianglesRenderer:
         by_hw = {}
         for c in cameras:
             by_hw.setdefault(_camera_hw(c), []).append(c)
-        for (height, width), group in by_hw.items():
-            self._dense_e_cap(
-                height, width, *stack_cameras(group),
-                dist=stack_distortions(group)
-                if _has_distortion(group) else None)
+        with annotate("smt.setup.budgets"):
+            for (height, width), group in by_hw.items():
+                self._dense_e_cap(
+                    height, width, *stack_cameras(group),
+                    dist=stack_distortions(group)
+                    if _has_distortion(group) else None)
 
 
 def _texel_resolutions(vertices, faces, cameras, texels_per_pixel,
@@ -590,13 +596,17 @@ class TexelsRenderer(TrianglesRenderer):
         cameras = list(cameras)
         if not cameras:
             raise ValueError("texels renderer needs at least one camera")
-        self.resolutions = _texel_resolutions(self.vertices, self.faces,
-                                              cameras, texels_per_pixel,
-                                              self.clip_near, bucket)
+        # the span ends with the read that waits for the sizing's device
+        # work
+        with annotate("smt.setup.texel_sizing"):
+            self.resolutions = _texel_resolutions(
+                self.vertices, self.faces, cameras, texels_per_pixel,
+                self.clip_near, bucket)
+            resolutions = self.resolutions.cpu()
         self.faces = geometry.reorder_faces_for_texels(self.vertices,
                                                        self.faces)
         self.face_vertices = self.vertices[self.faces]
-        counts = geometry.texel_count(self.resolutions.cpu().long()).numpy()
+        counts = geometry.texel_count(resolutions.long()).numpy()
         first = np.zeros(len(counts) + 1, np.int64)
         np.cumsum(counts, out=first[1:])
         self._primitive_num = int(first[-1])
@@ -617,12 +627,13 @@ class TexelsRenderer(TrianglesRenderer):
     def _shade(self, camera_arrays, tri):
         # camera_arrays carry the virtual focal of a distorted view: the
         # shader must see the focal the triangle ids were rasterized under
-        prim = _texel_prim_image(
-            self.vertices, self.faces, *camera_arrays, tri,
-            self.resolutions, self.first_texel_index, self._primitive_num,
-            clip_near=self.clip_near)
-        return torch.where(prim < self._primitive_num, prim,
-                           torch.full_like(prim, -1))
+        with span("smt.texel_shader"):
+            prim = _texel_prim_image(
+                self.vertices, self.faces, *camera_arrays, tri,
+                self.resolutions, self.first_texel_index,
+                self._primitive_num, clip_near=self.clip_near)
+            return torch.where(prim < self._primitive_num, prim,
+                               torch.full_like(prim, -1))
 
 
 def _camera_arrays(camera):
