@@ -24,9 +24,19 @@ each phase prints a line and raises on failure:
    both kernels (raster_dense forced) on tests/test_clipping.py's random
    straddling scene at 1296x968, raster_tile on every view of `large`
    indoor and raster_dense on every view of `scannet` indoor (twice,
-   bit-identical);
+   bit-identical). Wherever raster_dense is checked on a view (here and
+   in phases 6-12), the view's dense preparation by the dense_prep
+   kernels (dense.resolve_inputs) is first held against the plain chain
+   of PyTorch ops (dense.resolve_inputs_plain) on the same inputs, bit
+   for bit (table, sorted ids up to starts[B + 1], starts, overflow,
+   micro keys; 3 launches, 2 without a pair budget), and the plain
+   raster_dense runs on the plain chain's output;
 4. the main paths, each with every launch counter set to 0 just before it
-   and read just after:
+   and read just after (every such window, here and later, also checks
+   that the dense_prep kernels prepared each dense view: 3 launches a
+   view resolved by raster_dense, 2 one without a pair budget; the main
+   paths at `scannet`, `dense`, the texel presets and `scannet` indoor
+   count their views too):
    - `large` (cube s=16, 3072 triangles, 8 views of 2048x1536, 19
      classes; the tile rasterizer): render -> MeshAggregator (sum, summax,
      mul) -> get -> palette colours -> Ply.save -> reload; overflow 0;
@@ -107,8 +117,12 @@ each phase prints a line and raises on failure:
    one traced batch per indoor variant, the clipped `scannet` indoor
    batch against the culled one of the same cameras in turns, and the
    clipper and the clipped setup per view (launched and in graph
-   replays) against the culled setup. The kernel line's `launches`
-   counts `large` and `scannet`; `launches_by_path` every path's run.
+   replays) against the culled setup; the dense preparation at `scannet`
+   per view (dense_prep kernels and sort, launched and in graph replays,
+   the plain chain launched) against the bound of the bytes it moves.
+   The kernel line's `launches` counts `large` and `scannet`;
+   `launches_by_path` every path's run; its `dense_prep` row the
+   preparation's.
 
 6. the ScanNet eval path (eval_scannet.py around the renderer, the model
    left out) at `scannet`, every step a PhaseTimers phase: a
@@ -143,7 +157,9 @@ each phase prints a line and raises on failure:
    processes): `scannet` on views, plain and with shard_primitives;
    `large` on views x pixels; `scannet` on faces and on views x faces;
    `texels01` (texel_params) on views x faces; `scannet` indoor +
-   clip_near and `scannet` + SIMPLE_RADIAL (shared_lens) on views; each
+   clip_near and `scannet` + SIMPLE_RADIAL (shared_lens) on views, and
+   first on each rank's card its row band of `scannet`'s view 0 prepared
+   by the dense_prep kernels == the plain chain; each
    == fuse_views on one card within rtol 2e-5, atol 1e-5 with equal
    overflow, two runs bit-identical, timed in turns with the one-card
    batch (rasterize_fuse_throughput), rank 0's idle share from one
@@ -430,6 +446,65 @@ def dense_view_inputs(fv, cam, cap, device, clip_near=False):
                                      **rast.dense_kwargs(cap))
 
 
+def dense_view_pair(where, k, fv, cam, cap, device, clip_near=False,
+                    y_offset=0.0, height=None):
+    """One view's dense preparation at budget `cap`, twice on the card from
+    the same inputs: by the dense_prep kernels (dense.resolve_inputs, as
+    every dense path runs it) and by the plain chain of PyTorch ops they
+    replaced (dense.resolve_inputs_plain). Raises unless the two agree bit
+    for bit (the candidate table, the sorted ids up to the global bucket's
+    end starts[B + 1], the starts, the overflow, the micro key image and
+    the other arguments of resolve_dense) and the kernels took 3 launches
+    (2 without a pair budget). height: a row band's, at y_offset (default
+    the camera's, at 0). Returns (the kernels' resolve_dense arguments,
+    the plain chain's, overflow)."""
+    from semantic_meshes_torch import rasterize as rast
+    from semantic_meshes_torch.rasterize import dense, dense_prep
+
+    kw = dict(face_vertices=fv, clip_near=clip_near, device=device,
+              height=cam.resolution[1] if height is None else height,
+              width=cam.resolution[0], **rast.dense_kwargs(cap))
+    launches = dense_prep.launches
+    args, key, ov = dense.resolve_inputs(None, None, *cam_args(cam),
+                                         y_offset, **kw)
+    launches = dense_prep.launches - launches
+    pargs, pkey, pov = dense.resolve_inputs_plain(None, None, *cam_args(cam),
+                                                  y_offset, **kw)
+    torch.cuda.synchronize()
+    faults = []
+    want = 2 if args is None else 3
+    if launches != want:
+        faults.append(f"{launches} dense_prep launches, expected {want}")
+    if (args is None) != (pargs is None):
+        faults.append("one side has no pair budget")
+    if not torch.equal(key, pkey):
+        faults.append(f"micro keys differ on {int((key != pkey).sum())} "
+                      "pixels")
+    if int(ov) != int(pov):
+        faults.append(f"overflow {int(ov)}, plain {int(pov)}")
+    if args is not None and pargs is not None:
+        table, sids, starts = args[:3]
+        ptable, psids, pstarts = pargs[:3]
+        if not torch.equal(table.view(torch.int32), ptable.view(torch.int32)):
+            faults.append("candidate tables differ")
+        if not torch.equal(starts, pstarts):
+            faults.append("tile starts differ")
+        else:
+            end = int(pstarts[-1])
+            if sids.shape != psids.shape or not torch.equal(sids[:end],
+                                                            psids[:end]):
+                faults.append(f"sorted ids differ before {end}")
+        if not torch.equal(args[4], key):
+            faults.append("the arguments' micro key is not the returned one")
+        if ([a for a in args[3:] if not torch.is_tensor(a)]
+                != [a for a in pargs[3:] if not torch.is_tensor(a)]):
+            faults.append("the scalar arguments differ")
+    if faults:
+        raise AssertionError(f"{where} view {k}: the dense_prep kernels != "
+                             "the plain chain: " + "; ".join(faults))
+    return args, pargs, ov
+
+
 def load_against(path, index):
     """The kernel wrappers of the package semantic_meshes_torch in the
     checkout at `path`, imported beside this one as module
@@ -543,24 +618,29 @@ def tile_vs_plain(device):
 
 
 def dense_inputs(name, device, backend=None):
-    """(budget, [(resolve_dense arguments, overflow)] per view) of scene
-    `name` at the budget the renderer probes."""
+    """(budget, [(resolve_dense arguments from the dense_prep kernels, the
+    same from the plain chain, overflow)] per view) of scene `name` at the
+    budget the renderer probes; the two preparations bit-equal
+    (dense_view_pair)."""
     vertices, faces, cams = scene(name)
     fv = face_vertices(vertices, faces, device)
     cap = dense_budget(vertices, faces, cams, device, backend)
     views = []
-    for cam in cams:
-        args, _, overflow = dense_view_inputs(fv, cam, cap, device)
+    for k, cam in enumerate(cams):
+        args, pargs, overflow = dense_view_pair(name, k, fv, cam, cap,
+                                                device)
         if args is None:
             raise AssertionError(f"{name}: zero pair budget {cap}")
-        views.append((args, overflow))
+        views.append((args, pargs, overflow))
     return cap, views
 
 
 def dense_vs_plain(device):
-    """Phase 3, raster_dense at `scannet` (auto dispatch) and at `default`
-    forced dense, at the budgets the renderer probes, and on the
-    hand-binned scenes of testing.DENSE_SCENES (work-item boundaries, ties
+    """Phase 3, the dense preparation's kernels against the plain chain and
+    raster_dense on their output against its plain version on the plain
+    chain's, at `scannet` (auto dispatch) and at `default` forced dense, at
+    the budgets the renderer probes, and raster_dense on the hand-binned
+    scenes of testing.DENSE_SCENES (work-item boundaries, ties
     across items and between a global and an own candidate, long global
     buckets, empty tiles, slivers and off-screen vertices). At `scannet`
     the kernel runs twice per view and the two runs must give the same
@@ -572,9 +652,9 @@ def dense_vs_plain(device):
     for name, backend in (("scannet", None), ("default", "dense")):
         cap, views = dense_inputs(name, device, backend)
         shapes = []
-        for k, (args, overflow) in enumerate(views):
+        for k, (args, pargs, overflow) in enumerate(views):
             zk, ik = dense_kernel.resolve_dense_cuda(*args)
-            zp, ip = dense_kernel.resolve_dense_plain(*args)
+            zp, ip = dense_kernel.resolve_dense_plain(*pargs)
             if name == "scannet":
                 z2, i2 = dense_kernel.resolve_dense_cuda(*args)
                 if not (torch.equal(i2, ik) and torch.equal(
@@ -593,7 +673,9 @@ def dense_vs_plain(device):
                            int((starts[1:B + 1] - starts[:B]).max())))
         twice = ", two runs per view bit-identical" if name == "scannet" \
             else ""
-        phase(f"phase 3: raster_dense == plain at {name} (budget {cap}): "
+        phase(f"phase 3: dense_prep == plain chain (table, sorted ids, "
+              f"starts, overflow, micro keys bit-equal; 3 launches a view) "
+              f"and raster_dense == plain at {name} (budget {cap}): "
               f"{len(views)} views, ids equal, depths bit-equal, overflow 0"
               f"{twice}; (global bucket, heaviest own range) per view "
               f"{shapes}")
@@ -608,18 +690,65 @@ def dense_vs_plain(device):
     return max_err
 
 
+# windows of read_launches where a dense view was prepared off the
+# dense_prep kernels' route or with other than their launches; main (and
+# each sharded rank) raises at its end if any
+PREP_FAULTS = []
+
+
 def reset_launches():
-    from semantic_meshes_torch.rasterize import dense_kernel, tile_kernel
+    from semantic_meshes_torch.rasterize import (dense_kernel, dense_prep,
+                                                 tile_kernel)
 
     tile_kernel.launches = 0
     dense_kernel.launches = 0
+    dense_prep.launches = 0
+    dense_prep.views = 0
 
 
 def read_launches():
-    from semantic_meshes_torch.rasterize import dense_kernel, tile_kernel
+    """The kernels' launches since reset_launches. Also checks that the
+    dense_prep kernels prepared every dense view of the window: 3 launches
+    a view whose pairs kernel B then resolved, 2 a view with no pair
+    budget (no kernel B), so their launches are 2 a view prepared plus
+    raster_dense's; a window that breaks it goes to PREP_FAULTS."""
+    from semantic_meshes_torch.rasterize import (dense_kernel, dense_prep,
+                                                 tile_kernel)
 
+    prep = read_prep()
+    if prep["launches"] != 2 * prep["views"] + dense_kernel.launches:
+        PREP_FAULTS.append(
+            f"{prep['launches']} dense_prep launches for {prep['views']} "
+            f"views prepared and {dense_kernel.launches} of raster_dense")
     return {"raster_tile": tile_kernel.launches,
             "raster_dense": dense_kernel.launches}
+
+
+def read_prep():
+    """{"launches", "views"} of the dense_prep kernels since
+    reset_launches."""
+    from semantic_meshes_torch.rasterize import dense_prep
+
+    return {"launches": dense_prep.launches, "views": dense_prep.views}
+
+
+def check_prep(label, prep, budgets):
+    """Raises unless the dense_prep kernels prepared one view for each
+    dense budget in `budgets` (None: the default pair budget), 3 launches
+    a view with a pair budget and 2 one without."""
+    def pairs(c):
+        return 1 if c is None else int(c if isinstance(c, int) else c[0])
+
+    want = {"launches": sum(3 if pairs(c) > 0 else 2 for c in budgets),
+            "views": len(budgets)}
+    if prep != want:
+        raise AssertionError(f"{label}: dense_prep {prep}, expected {want}")
+
+
+def raise_prep_faults():
+    if PREP_FAULTS:
+        raise AssertionError("dense views prepared off the dense_prep "
+                             "kernels' route: " + " | ".join(PREP_FAULTS))
 
 
 def fuse_and_save(name, mesh, rendered, probs, classes, workdir, device,
@@ -731,6 +860,8 @@ def main_path(name, device, workdir):
     rasterized += [plan.dense_e_cap] * (2 * n_views)
     torch.cuda.synchronize()
     launches = read_launches()
+    prep = read_prep()
+    check_prep(name, prep, rasterized if dense else [])
 
     kernel = "raster_dense" if dense else "raster_tile"
     other = "raster_tile" if dense else "raster_dense"
@@ -749,13 +880,14 @@ def main_path(name, device, workdir):
         f"phase 4: main path at {name} ok: {n_views} views {width}x{height}, "
         f"{len(faces)} triangles, {classes} classes, {extra}sum/summax/mul "
         f"fused, PLY saved and reloaded, overflow 0, launches {launches} == "
-        f"{expect} views rasterized with pairs, planned == per-view "
+        f"{expect} views rasterized with pairs, dense_prep {prep}, planned "
+        f"== per-view "
         f"(bit-equal: {torch.equal(acc, fused_sum)}), repeated fusion "
         "bit-identical"
     )
     return dict(vertices=vertices, faces=faces, cams=cams, probs=probs,
                 plan=plan, rot=rot, trans=trans, fl=fl, pp=pp, cap=cap,
-                launches=launches[kernel])
+                launches=launches[kernel], prep_launches=prep["launches"])
 
 
 def dense_preset(device):
@@ -777,6 +909,9 @@ def dense_preset(device):
                                     probs, classes, device)
     torch.cuda.synchronize()
     launches = read_launches()
+    prep = read_prep()
+    check_prep("dense", prep, [plans[True].dense_e_cap] * (2 * n_views)
+               + [plans[False].dense_e_cap] * (2 * n_views))
     if plans[True].split_k <= 0 or plans[False].split_k != 0:
         raise AssertionError(f"dense: split_k {plans[True].split_k} / "
                              f"{plans[False].split_k}")
@@ -792,10 +927,11 @@ def dense_preset(device):
         f"{plans[False].dense_e_cap}; split == unsplit in original face "
         f"order (bit-equal: {torch.equal(accs[True], accs[False])}), "
         f"overflow 0, repeated fusion bit-identical, launches {launches} "
-        "(a zero pair budget runs no kernel)"
+        f"(a zero pair budget runs no kernel), dense_prep {prep}"
     )
     return dict(vertices=vertices, faces=faces, probs=probs, plan=plans[True],
-                rot=rot, trans=trans, fl=fl, pp=pp, launches=launches)
+                rot=rot, trans=trans, fl=fl, pp=pp, launches=launches,
+                prep_launches=prep["launches"])
 
 
 def texel_renderer(name, device):
@@ -818,20 +954,20 @@ def texel_dense_vs_plain(device):
     cap = renderer.dense_cap_policy._cap[(cams[0].height, cams[0].width)]
     max_err = 0.0
     for k, cam in enumerate(cams):
-        args, _, overflow = dense_view_inputs(renderer.face_vertices, cam,
-                                              cap, device)
+        args, pargs, overflow = dense_view_pair(
+            "texels", k, renderer.face_vertices, cam, cap, device)
         if args is None:
             raise AssertionError(f"texels: zero pair budget {cap}")
         zk, ik = dense_kernel.resolve_dense_cuda(*args)
-        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*pargs)
         torch.cuda.synchronize()
         if int(overflow) != 0:
             raise AssertionError(f"texels view {k}: overflow {int(overflow)}")
         max_err = max(max_err, assert_same_image("texels", k, zk, ik, zp,
                                                  ip))
-    phase(f"phase 3: raster_dense == plain at texels (reordered faces, "
-          f"budget {cap}): {len(cams)} views, ids equal, depths bit-equal, "
-          "overflow 0")
+    phase(f"phase 3: dense_prep == plain chain and raster_dense == plain at "
+          f"texels (reordered faces, budget {cap}): {len(cams)} views, "
+          "preparations bit-equal, ids equal, depths bit-equal, overflow 0")
     return max_err
 
 
@@ -919,6 +1055,8 @@ def texel_main_path(name, device, workdir):
     rasterized += [plan.dense_e_cap] * (2 * n_views)
     torch.cuda.synchronize()
     launches = read_launches()
+    prep = read_prep()
+    check_prep(name, prep, rasterized)
 
     if not torch.equal(runs[0], runs[1]):
         raise AssertionError(f"{name}: repeated fusion is not bit-identical")
@@ -972,7 +1110,8 @@ def texel_main_path(name, device, workdir):
         f"classes; dense budget {cap} (render), plan {plan.dense_e_cap} "
         f"split_k {plan.split_k}; prepare + render + render_many, "
         f"sum/summax/mul fused, colours, overflow 0, launches {launches} == "
-        f"{expect} views rasterized with pairs, every texel id < P, the "
+        f"{expect} views rasterized with pairs, dense_prep {prep}, every "
+        f"texel id < P, the "
         f"card's shader == the CPU's on every view"
         f"{', each == first_texel_index[face]' if name == 'texels01' else ''}"
         f", fuse_views_texels == per-view (bit-equal: "
@@ -980,7 +1119,7 @@ def texel_main_path(name, device, workdir):
     )
     return dict(renderer=renderer, cams=cams, probs=probs, plan=plan,
                 cap=cap, batch=batch, launches=launches, faces=faces,
-                primitives=P)
+                primitives=P, prep_launches=prep["launches"])
 
 
 def texel_tile_check(device):
@@ -1445,9 +1584,10 @@ def clipped_vs_plain(device):
     args, ov_t = view_inputs(fv, cam, device, clip_near=True)
     zk, ik = tile_kernel.resolve_tiles_cuda(*args)
     zp, ip = tile_kernel.resolve_tiles_plain(*args)
-    dargs, _, ov_d = dense_view_inputs(fv, cam, None, device, clip_near=True)
+    dargs, pdargs, ov_d = dense_view_pair("straddle", 0, fv, cam, None,
+                                          device, clip_near=True)
     zd, idd = dense_kernel.resolve_dense_cuda(*dargs)
-    zdp, idp = dense_kernel.resolve_dense_plain(*dargs)
+    zdp, idp = dense_kernel.resolve_dense_plain(*pdargs)
     torch.cuda.synchronize()
     max_err = max(max_err, assert_same_image("straddle tile", 0, zk, ik, zp,
                                              ip),
@@ -1482,13 +1622,13 @@ def clipped_vs_plain(device):
     drops = global_drops(vertices, faces, cams, device)
     shapes = []
     for k, cam in enumerate(cams):
-        args, _, overflow = dense_view_inputs(fv, cam, cap, device,
-                                              clip_near=True)
+        args, pargs, overflow = dense_view_pair("scannet indoor", k, fv, cam,
+                                                cap, device, clip_near=True)
         if args is None:
             raise AssertionError(f"scannet indoor: zero pair budget {cap}")
         zk, ik = dense_kernel.resolve_dense_cuda(*args)
         z2, i2 = dense_kernel.resolve_dense_cuda(*args)
-        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*pargs)
         torch.cuda.synchronize()
         if not (torch.equal(i2, ik) and torch.equal(z2.view(torch.int32),
                                                     zk.view(torch.int32))):
@@ -1503,8 +1643,9 @@ def clipped_vs_plain(device):
         B = starts.numel() - 2
         shapes.append((int(starts[B + 1] - starts[B]),
                        int((starts[1:B + 1] - starts[:B]).max())))
-    phase(f"phase 3: raster_dense == plain at scannet indoor + clip (budget "
-          f"{cap}, {2 * len(faces)} piece rows): {len(cams)} views, ids "
+    phase(f"phase 3: dense_prep == plain chain and raster_dense == plain at "
+          f"scannet indoor + clip (budget {cap}, {2 * len(faces)} piece "
+          f"rows): {len(cams)} views, preparations bit-equal, ids "
           f"equal, depths bit-equal, two runs per view bit-identical, "
           f"overflow per view == big rows past n_global {drops}; (global "
           f"bucket, heaviest own range) per view {shapes}")
@@ -1579,6 +1720,8 @@ def indoor_main_path(name, device, workdir):
     kernel = "raster_dense" if dense else "raster_tile"
     expect_launches(label, launches, kernel, sum(
         1 for c in caps if not dense or c is None or c[0] > 0))
+    prep = read_prep()
+    check_prep(label, prep, caps if dense else [])
     bit = same_state(label, acc, fused_sum)
     if not torch.equal(unplanned, acc):
         raise AssertionError(f"{label}: fuse_views != fuse_views_planned")
@@ -1590,7 +1733,8 @@ def indoor_main_path(name, device, workdir):
         f"{extra}, split_k {plan.split_k}; prepare + render + render_many, "
         f"coverage per view {coverage}, sum/summax/mul fused, PLY saved and "
         f"reloaded, overflow per batch {total} == the big rows past n_global "
-        f"per view {drops}, launches {launches}, planned == per-view "
+        f"per view {drops}, launches {launches}, dense_prep {prep}, planned "
+        f"== per-view "
         f"(bit-equal: {bit}), repeated fusion bit-identical, "
         "fuse_views_split == fuse_views == planned"
     )
@@ -1611,7 +1755,7 @@ def indoor_main_path(name, device, workdir):
     return dict(faces=faces, vertices=vertices, cams=cams, probs=probs,
                 plan=plan, batch=batch, cull_batch=cull_batch,
                 entry="fuse_views_planned", launches=launches, cap=cap,
-                drops=drops)
+                drops=drops, prep_launches=prep["launches"])
 
 
 def indoor_texels01(device):
@@ -2170,6 +2314,56 @@ def dense_kernel_row(label, inputs, against, card):
         f"{items}"
     )
     return out
+
+
+def dense_prep_row(ctx, device, card):
+    """The dense preparation on every view of `scannet` at its probed
+    budget (dense.resolve_inputs on the card: the three dense_prep kernels
+    and the sort), per view: ms from CUDA-graph replays, launched_ms as
+    launched from Python view by view, the plain chain's time launched
+    (plain_ms), and the bound of the bytes it has to move: each face's 36
+    bytes read, a 64-byte table row and five 4-byte sorted ids written a
+    row (up to the pair budget), the tile starts, and the 8-byte micro key
+    a pixel. Prints one line; returns the numbers."""
+    from semantic_meshes_torch import rasterize as rast
+    from semantic_meshes_torch.rasterize import dense
+
+    vertices, faces, cams, cap = (ctx["vertices"], ctx["faces"], ctx["cams"],
+                                  ctx["cap"])
+    fv = face_vertices(vertices, faces, device)
+    n = len(cams)
+    kw = rast.dense_kwargs(cap)
+
+    def prepare():
+        return [dense_view_inputs(fv, cam, cap, device) for cam in cams]
+
+    def plain():
+        return [dense.resolve_inputs_plain(None, None, *cam_args(cam),
+                                           face_vertices=fv, device=device,
+                                           **cam_kw(cam), **kw)
+                for cam in cams]
+
+    launched_ms = cuda_time_ms(prepare, reps=10) / n
+    ms = graph_time_ms(prepare, reps=10) / n
+    plain_ms = cuda_time_ms(plain, reps=3) / n
+    width, height = cams[0].resolution
+    rows = len(faces)
+    e_cap = dense._e_cap(rows, 3, kw.get("e_cap_rows"))
+    tiles = dense._cdiv(height, dense.TILE_H) * dense._cdiv(width,
+                                                            dense.TILE_W)
+    nbytes = (rows * 36 + (rows + 1) * 64 + min(e_cap, 5 * rows) * 4
+              + (tiles + 2) * 4 + width * height * 8)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    phase(
+        f"phase 5 [{card}]: dense_prep at scannet ({n} views {width}x"
+        f"{height}, {rows} rows, budget {cap}), per view: {ms:.6f} ms "
+        f"(graph replays), {launched_ms:.6f} ms launched view by view; the "
+        f"plain chain {plain_ms:.6f} ms launched; bytes bound "
+        f"{bound_ms:.6f} ms for {nbytes} bytes at {PEAK_BYTES_S / 1e12} "
+        "TB/s"
+    )
+    return dict(ms=ms, launched_ms=launched_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", bytes=nbytes)
 
 
 def device_busy(label, entry, fn, batch_ms, card, tag="phase 5"):
@@ -2863,10 +3057,15 @@ def band_check(label, vertices, faces, cams, device, plain_views):
                 row0 = b * band
                 kw = dict(face_vertices=fv, height=band, width=width,
                           device=device)
-                if use_dense:
+                if use_dense and k in plain_views:
+                    args, pargs, ov = dense_view_pair(
+                        f"{label} band {b} of {n}", k, fv, cam, cap, device,
+                        y_offset=row0, height=band)
+                elif use_dense:
                     args, _, ov = dense.resolve_inputs(
                         None, None, *cam_args(cam), row0, **kw,
                         **rast.dense_kwargs(cap))
+                if use_dense:
                     if args is None:
                         raise AssertionError(f"{label}: zero pair budget")
                     zk, ik = dense_kernel.resolve_dense_cuda(*args)
@@ -2874,6 +3073,7 @@ def band_check(label, vertices, faces, cams, device, plain_views):
                 else:
                     args, ov = tile_kernel.resolve_inputs(
                         None, None, *cam_args(cam), row0, **kw)
+                    pargs = args
                     zk, ik = tile_kernel.resolve_tiles_cuda(*args)
                     plain = tile_kernel.resolve_tiles_plain
                 where = (f"{label} band {b} of {n} (rows {row0}-"
@@ -2884,7 +3084,7 @@ def band_check(label, vertices, faces, cams, device, plain_views):
                 assert_same_image(where + " == full render", k, zk, ik,
                                   z[row0:row0 + band], ids[row0:row0 + band])
                 if k in plain_views:
-                    zp, ip = plain(*args)
+                    zp, ip = plain(*pargs)
                     err = max(err, assert_same_image(where + " == plain", k,
                                                      zk, ik, zp, ip))
     torch.cuda.synchronize()
@@ -3141,6 +3341,30 @@ def sharded_rank(rank, n, port, out_dir, bw):
         json.dump(result, fh)
 
 
+def rank_prep_check(rank, n, device):
+    """On card `rank`: the dense preparation of this rank's row band (one
+    of n) of `scannet`'s first view, by the dense_prep kernels against the
+    plain chain (dense_view_pair), and raster_dense on it against its
+    plain version on the plain chain's."""
+    from semantic_meshes_torch.rasterize import dense_kernel
+
+    vertices, faces, cams = scene("scannet")
+    fv = face_vertices(vertices, faces, device)
+    cap = dense_budget(vertices, faces, cams, device)
+    band = cams[0].resolution[1] // n
+    args, pargs, ov = dense_view_pair(
+        f"rank {rank}, scannet band {rank} of {n}", 0, fv, cams[0], cap,
+        device, y_offset=rank * band, height=band)
+    zk, ik = dense_kernel.resolve_dense_cuda(*args)
+    zp, ip = dense_kernel.resolve_dense_plain(*pargs)
+    torch.cuda.synchronize()
+    assert_same_image(f"rank {rank} band", 0, zk, ik, zp, ip)
+    print(f"phase 7 rank {rank} [{device}]: dense_prep == plain chain and "
+          f"raster_dense == plain on band {rank} of {n} (rows "
+          f"{rank * band}-{(rank + 1) * band - 1}) of scannet view 0, "
+          f"overflow {int(ov)}", flush=True)
+
+
 def sharded_rank_cases(rank, n, port, bw):
     import torch.distributed as dist
 
@@ -3149,6 +3373,7 @@ def sharded_rank_cases(rank, n, port, bw):
     device = torch.device("cuda", rank)
     smt.distributed.initialize_multihost(f"127.0.0.1:{port}", n, rank,
                                          device=device)
+    rank_prep_check(rank, n, device)
     meshes, results = {}, []
     for label, preset, layout, opts, fuse_opts in sharded_cases(n):
         args, kw, one_card = sharded_inputs(preset, device, **opts)
@@ -3209,6 +3434,7 @@ def sharded_rank_cases(rank, n, port, bw):
         torch.cuda.empty_cache()
     dist.barrier()
     dist.destroy_process_group()
+    raise_prep_faults()
     return {"rank": rank, "device": torch.cuda.get_device_name(device),
             "cases": results}
 
@@ -3590,17 +3816,17 @@ def e2e_dense_vs_plain(renderer, cams, device):
     from semantic_meshes_torch.rasterize import dense_kernel
 
     for k, cam in enumerate(cams):
-        args, _, overflow = dense_view_inputs(renderer.face_vertices, cam,
-                                              None, device)
+        args, pargs, overflow = dense_view_pair(
+            "e2e", k, renderer.face_vertices, cam, None, device)
         if args is None:
             raise AssertionError("e2e: zero pair budget")
         zk, ik = dense_kernel.resolve_dense_cuda(*args)
-        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*pargs)
         torch.cuda.synchronize()
         if int(overflow) != 0:
             raise AssertionError(f"e2e view {k}: overflow {int(overflow)}")
         assert_same_image("e2e", k, zk, ik, zp, ip)
-        del args, zk, ik, zp, ip
+        del args, pargs, zk, ik, zp, ip
     return len(cams)
 
 
@@ -4511,12 +4737,13 @@ def cityscapes_demo(device, root, failures):
     renderer.prepare(cams)
     err, t = 0.0, time.monotonic()
     for k, (f, cam) in enumerate(zip(files, cams)):
-        args, _, overflow = dense_view_inputs(fv, cam, cap, device)
+        args, pargs, overflow = dense_view_pair("cityscapes demo", k, fv,
+                                                cam, cap, device)
         if not check(failures, args is not None,
                      f"demo view {k}: zero pair budget (no kernel)"):
             continue
         zk, ik = dense_kernel.resolve_dense_cuda(*args)
-        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*pargs)
         torch.cuda.synchronize()
         err = max(err, assert_same_image("cityscapes demo", k, zk, ik, zp,
                                          ip))
@@ -4527,7 +4754,7 @@ def cityscapes_demo(device, root, failures):
         probs = probs_io.densify(probs_io.load(
             os.path.join(p.probs, os.path.splitext(f)[0]), "f16", device))
         agg.add(ip.t(), probs.transpose(0, 1))
-        del args, zk, ik, zp, ip, ids, probs
+        del args, pargs, zk, ik, zp, ip, ids, probs
     fused = agg.get().cpu().numpy()
     plain = np.where((fused.sum(-1) < demo.DONT_CARE_THRESHOLD)[:, None],
                      np.uint8(0), CLASS_TO_COLOR[fused.argmax(-1)])
@@ -5176,10 +5403,10 @@ def bucketed_scannet(device, card):
                  render_all(dense, cams))
     err = 0.0
     for k, cam in enumerate(cams):
-        args, _, overflow = dense_view_inputs(padded.face_vertices, cam, cap,
-                                              device)
+        args, pargs, overflow = dense_view_pair(
+            "bucketed s=35", k, padded.face_vertices, cam, cap, device)
         zk, ik = dense_kernel.resolve_dense_cuda(*args)
-        zp, ip = dense_kernel.resolve_dense_plain(*args)
+        zp, ip = dense_kernel.resolve_dense_plain(*pargs)
         torch.cuda.synchronize()
         if int(overflow):
             raise AssertionError(f"bucketed s=35 view {k}: overflow "
@@ -5463,6 +5690,7 @@ def main():
         if args.bench_only:
             bench_phase(device, card, {}, None)
             bucketing_phase(device, card)
+        raise_prep_faults()
         phase(f"done in {time.monotonic() - t0:.1f} s")
         print(card)
         print(json.dumps({"ok": True, "device": {
@@ -5497,8 +5725,9 @@ def main():
     tile_times("default", device, card, against)
     tile_row = tile_times("large", device, card, against)
     dense_row = dense_times(scannet, device, card, against)
+    prep_row = dense_prep_row(scannet, device, card)
     dense_kernel_row("default forced dense",
-                     [a for a, _ in dense_inputs("default", device,
+                     [v[0] for v in dense_inputs("default", device,
                                                  "dense")[1]],
                      against, card)
     large_times(large, device, card)
@@ -5508,10 +5737,13 @@ def main():
         "raster_tile": {"large": large["launches"],
                         "default texels": default_texels["raster_tile"]},
         "raster_dense": {"scannet": scannet["launches"],
-                         "dense": dense_ctx["launches"]["raster_dense"]}}
+                         "dense": dense_ctx["launches"]["raster_dense"]},
+        "dense_prep": {"scannet": scannet["prep_launches"],
+                       "dense": dense_ctx["prep_launches"]}}
     for name, ctx in texels.items():
         for kernel, n in ctx["launches"].items():
             by_path[kernel][name] = n
+        by_path["dense_prep"][name] = ctx["prep_launches"]
     by_path["raster_dense"]["scannet + SIMPLE_RADIAL"] = \
         scannet_lens["launches"]["raster_dense"]
     by_path["raster_tile"]["large + lenses"] = \
@@ -5523,6 +5755,8 @@ def main():
     for name, ctx in indoor.items():
         kernel = "raster_tile" if name == "large" else "raster_dense"
         by_path[kernel][f"{name} indoor + clip"] = ctx["launches"][kernel]
+    by_path["dense_prep"]["scannet indoor + clip"] = \
+        indoor["scannet"]["prep_launches"]
     by_path["raster_dense"]["scannet indoor + clip + SIMPLE_RADIAL"] = \
         indoor_lens["launches"]["raster_dense"]
     del large, scannet
@@ -5610,7 +5844,22 @@ def main():
         **dense_row,
         "library_ms": None,
         **indoor_row("scannet indoor + clip", dense_indoor),
+    }, {
+        "name": "dense_prep",
+        "route": "cuda",
+        "source": "semantic_meshes_torch/csrc/dense_prep.cu",
+        # XLA ops there (setup, classification, sort binning, scatters of
+        # the micro path), no TPU kernel
+        "replaces": "semantic_meshes/rasterize/dense.py",
+        "launches": by_path["dense_prep"]["scannet"],
+        "launches_by_path": by_path["dense_prep"],
+        # table, sorted ids, starts, overflow and micro keys bit-equal to
+        # the plain chain (dense_view_pair)
+        "max_abs_err": 0.0,
+        **prep_row,
+        "library_ms": None,
     }]
+    raise_prep_faults()
     phase(f"done in {time.monotonic() - t0:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -2,9 +2,11 @@
 
 Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library with
 a plain C interface, `build/torch_kernels/lib<name>-<hash>.so` at the root
-of the checkout, the first time it is needed; the hash covers the source,
-the shared headers `csrc/*.cuh` and the flags, so an edited source or
-header rebuilds. nvcc's output (with the
+of the checkout, the first time it is needed, together with the further
+sources SOURCES names for it (`raster_dense` also holds the dense
+preparation of `csrc/dense_prep.cu`, so the dense route runs one build);
+the hash covers the sources, the shared headers `csrc/*.cuh` and the
+flags, so an edited source or header rebuilds. nvcc's output (with the
 -Xptxas -v register and shared-memory report) is kept beside it as `.log`.
 Each host source `csrc/<name>.cpp` (the `.sens` / images.bin IO library,
 see `native.py`) is compiled the same way by g++, with threads (no
@@ -32,6 +34,9 @@ NVCC_FLAGS = (
     "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
+# every source of a library, where it is more than csrc/<name>.cu
+SOURCES = {"raster_dense": ("raster_dense.cu", "dense_prep.cu")}
+
 CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-pthread", "-Wall", "-shared")
 CXX_LIBS = ("-lz",)
 
@@ -49,10 +54,17 @@ def _nvcc():
     )
 
 
+def sources(name):
+    """The CUDA sources of library `name`."""
+    return [CSRC / src for src in SOURCES.get(name, (f"{name}.cu",))]
+
+
 def library_path(name):
-    """The library of csrc/<name>.cu; its hash covers that source, every
+    """The library of csrc/<name>.cu; its hash covers its sources, every
     csrc/*.cuh header (a kernel may include any of them) and the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for src in sources(name):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -60,8 +72,8 @@ def library_path(name):
 
 
 def build(*names):
-    """Compile csrc/<name>.cu for each name not built yet: one nvcc process
-    per source, all started together. Returns the libraries' paths."""
+    """Compile the sources of each library not built yet: one nvcc process
+    per library, all started together. Returns the libraries' paths."""
     outs = [library_path(name) for name in names]
     todo = [(name, out) for name, out in zip(names, outs) if not out.exists()]
     if not todo:
@@ -71,7 +83,8 @@ def build(*names):
     running = []
     for name, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *(str(src) for src in sources(name))]
         running.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))

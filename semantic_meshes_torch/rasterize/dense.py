@@ -22,6 +22,19 @@ DENSE_THRESHOLD faces or more (ScanNet scale), in four steps per view:
    micro image: `dense_kernel.resolve_dense` (CUDA kernel for CUDA
    tensors, plain PyTorch for CPU tensors).
 
+Steps 1-3 and the candidate table are the dense preparation,
+`resolve_inputs`. On a CUDA device it runs the hand-written kernels of
+`dense_prep` (csrc/dense_prep.cu): a setup pass that also classifies,
+writes the tile ids and the table and fills the micro image, the stable
+`torch.sort` of the tile ids, a pass for the ids, starts and overflow,
+and a micro-fragment pass (64-bit atomicMin into the packed image): 3
+kernel launches and the sort's own a view, the camera passed by value,
+no host sync. On the CPU it runs `resolve_inputs_plain`, the chain of
+PyTorch ops below (~550 launches a view if run on a card), which is also
+the kernels' oracle: on the card the two give the same bits (table,
+sorted ids, starts, overflow, micro keys). There is no fallback from one
+to the other.
+
 Every float -> int32 conversion saturates (NaN -> 0) and int32 sums wrap,
 as XLA's do, so classification and counts equal the JAX package's number
 for number.
@@ -38,7 +51,7 @@ import torch
 
 from ..data import resolve_device
 from ..profiling import span
-from . import dense_kernel, tile_kernel, tiles
+from . import dense_kernel, dense_prep, tile_kernel, tiles
 
 TILE_H = dense_kernel.TILE_H
 TILE_W = dense_kernel.TILE_W
@@ -274,9 +287,8 @@ def _micro_key(setup, micro, height, width, y_offset, tri_ids=None,
                micro_max=None, micro_split=None, micro_cap_rows=None):
     """Micro image (packed keys) + the count of micro rows dropped by a
     `micro_cap_rows` budget below T (compaction first, then fragments)."""
-    T = setup["denom"].shape[0]
-    if micro_cap_rows is not None and int(micro_cap_rows) < T:
-        cap = min(_cdiv(max(int(micro_cap_rows), 8), 8) * 8, T)
+    cap = _micro_cap(micro_cap_rows, setup["denom"].shape[0])
+    if cap is not None:
         sub, take, valid, dropped = _compact_micro(setup, micro, cap)
         ids = take if tri_ids is None else torch.as_tensor(
             tri_ids, device=take.device)[take]
@@ -304,6 +316,21 @@ def _check_args(micro_max, micro_split, micro_cap_rows, clip_near=False,
             "compaction is a no-op")
 
 
+def _e_cap(rows, e_cap_factor, e_cap_rows):
+    """The pair budget: e_cap_rows, or e_cap_factor rows a setup row,
+    rounded up to a CHUNK multiple."""
+    want = int(e_cap_factor) * rows if e_cap_rows is None else int(e_cap_rows)
+    return _cdiv(max(want, CHUNK), CHUNK) * CHUNK
+
+
+def _micro_cap(micro_cap_rows, rows):
+    """The compaction cap of a micro-row budget below `rows` (a multiple
+    of 8, at least 8, at most rows), or None: no compaction."""
+    if micro_cap_rows is None or int(micro_cap_rows) >= rows:
+        return None
+    return min(_cdiv(max(int(micro_cap_rows), 8), 8) * 8, rows)
+
+
 def resolve_inputs(vertices, faces, rotation, translation, focal_lengths,
                    principal_point, y_offset=0.0, face_vertices=None, *,
                    height, width, n_global=N_GLOBAL, e_cap_factor=3,
@@ -317,38 +344,90 @@ def resolve_inputs(vertices, faces, rotation, translation, focal_lengths,
     path: no binning and no kernel; every pair counts as overflow);
     micro_key is the fragment path's packed image; overflow an int32
     scalar tensor (dropped pairs + dropped micro rows). With clip_near
-    every id in them is a piece id (rasterize maps it back)."""
+    every id in them is a piece id (rasterize maps it back).
+
+    On a CUDA device the hand-written kernels of `dense_prep` compute it
+    in a few launches with no host sync; on the CPU the plain chain
+    `resolve_inputs_plain` does. The two are bit-identical on the card."""
     with span("smt.dense_prep"):
         _check_args(micro_max, micro_split, micro_cap_rows, clip_near, tri_ids)
-        setup = tiles.setup_inputs(vertices, faces, rotation, translation,
-                                   focal_lengths, principal_point,
-                                   face_vertices, device, clip_near)
-        T = setup["denom"].shape[0]
-        y_offset = float(y_offset)
+        device = resolve_device(device)
+        if device.type == "cpu":
+            return resolve_inputs_plain(
+                vertices, faces, rotation, translation, focal_lengths,
+                principal_point, y_offset, face_vertices, height=height,
+                width=width, n_global=n_global, e_cap_factor=e_cap_factor,
+                e_cap_rows=e_cap_rows, micro_cap_rows=micro_cap_rows,
+                micro_max=micro_max, micro_split=micro_split,
+                tri_ids=tri_ids, clip_near=clip_near, device=device)
+        if device.type != "cuda":
+            raise ValueError(f"no dense preparation for device {device}")
+        if face_vertices is None:
+            v = torch.as_tensor(vertices, dtype=torch.float32, device=device)
+            face_vertices = v[torch.as_tensor(faces, dtype=torch.int64,
+                                              device=device)]
+        fv = torch.as_tensor(face_vertices, dtype=torch.float32,
+                             device=device).contiguous()
+        rows = fv.shape[0] * (2 if clip_near else 1)
         if tri_ids is not None:
             tri_ids = torch.as_tensor(tri_ids, dtype=torch.int32,
-                                      device=setup["denom"].device)
-        micro_kw = dict(tri_ids=tri_ids, micro_max=micro_max,
-                        micro_split=micro_split, micro_cap_rows=micro_cap_rows)
-        if e_cap_rows is not None and int(e_cap_rows) == 0:
-            micro, small, big, _, _, span_h, span_w = _classify(
-                setup, height, width, y_offset, micro_max, micro_split)
-            key, dropped = _micro_key(setup, micro, height, width, y_offset,
-                                      **micro_kw)
-            return None, key, _pair_count(small, big, span_h, span_w) + dropped
-        if e_cap_rows is None:
-            e_cap = _cdiv(max(int(e_cap_factor) * T, CHUNK), CHUNK) * CHUNK
-        else:
-            e_cap = _cdiv(max(int(e_cap_rows), CHUNK), CHUNK) * CHUNK
-        sorted_ids, starts, overflow, micro = _build_sorted_bins(
-            setup, height, width, y_offset, e_cap, n_global, micro_max,
-            micro_split)
+                                      device=device).contiguous()
+        zero = e_cap_rows is not None and int(e_cap_rows) == 0
+        nbx = _cdiv(width, TILE_W)
+        table, sorted_ids, starts, key, overflow = dense_prep.prepare(
+            fv, (rotation, translation, focal_lengths, principal_point),
+            height=height, width=width, y_offset=float(y_offset),
+            e_cap=0 if zero else _e_cap(rows, e_cap_factor, e_cap_rows),
+            n_global=n_global,
+            micro_max=MICRO_MAX if micro_max is None else int(micro_max),
+            micro_split=micro_split,
+            micro_cap=_micro_cap(micro_cap_rows, rows), tri_ids=tri_ids,
+            clip_near=clip_near, nbx=nbx,
+            num_tiles=_cdiv(height, TILE_H) * nbx)
+        if table is None:
+            return None, key, overflow
+        args = (table, sorted_ids, starts, n_global, key, float(y_offset),
+                nbx, height, width)
+        return args, key, overflow
+
+
+def resolve_inputs_plain(vertices, faces, rotation, translation,
+                         focal_lengths, principal_point, y_offset=0.0,
+                         face_vertices=None, *, height, width,
+                         n_global=N_GLOBAL, e_cap_factor=3, e_cap_rows=None,
+                         micro_cap_rows=None, micro_max=None,
+                         micro_split=None, tri_ids=None, clip_near=False,
+                         device="cuda"):
+    """resolve_inputs as a chain of PyTorch ops on any device: the CPU
+    implementation, and on the card the oracle of the dense_prep kernels
+    (~550 launches and a host sync for each camera upload there)."""
+    _check_args(micro_max, micro_split, micro_cap_rows, clip_near, tri_ids)
+    setup = tiles.setup_inputs(vertices, faces, rotation, translation,
+                               focal_lengths, principal_point,
+                               face_vertices, device, clip_near)
+    T = setup["denom"].shape[0]
+    y_offset = float(y_offset)
+    if tri_ids is not None:
+        tri_ids = torch.as_tensor(tri_ids, dtype=torch.int32,
+                                  device=setup["denom"].device)
+    micro_kw = dict(tri_ids=tri_ids, micro_max=micro_max,
+                    micro_split=micro_split, micro_cap_rows=micro_cap_rows)
+    if e_cap_rows is not None and int(e_cap_rows) == 0:
+        micro, small, big, _, _, span_h, span_w = _classify(
+            setup, height, width, y_offset, micro_max, micro_split)
         key, dropped = _micro_key(setup, micro, height, width, y_offset,
                                   **micro_kw)
-        table = tile_kernel.candidate_table(setup, tri_ids)
-        args = (table, sorted_ids, starts, n_global, key, y_offset,
-                _cdiv(width, TILE_W), height, width)
-        return args, key, overflow + dropped
+        return None, key, _pair_count(small, big, span_h, span_w) + dropped
+    e_cap = _e_cap(T, e_cap_factor, e_cap_rows)
+    sorted_ids, starts, overflow, micro = _build_sorted_bins(
+        setup, height, width, y_offset, e_cap, n_global, micro_max,
+        micro_split)
+    key, dropped = _micro_key(setup, micro, height, width, y_offset,
+                              **micro_kw)
+    table = tile_kernel.candidate_table(setup, tri_ids)
+    args = (table, sorted_ids, starts, n_global, key, y_offset,
+            _cdiv(width, TILE_W), height, width)
+    return args, key, overflow + dropped
 
 
 def rasterize(vertices, faces, rotation, translation, focal_lengths,

@@ -18,6 +18,13 @@ one packed int64 key per pixel, (z bits << 32) | id, +inf background.
 fallback from one to the other. The kernel cuts each tile's list into work
 items of ITEM candidates (`work_items`) and merges a tile's items through a
 scratch that every launch leaves zero, kept per stream (`_scratch`).
+
+Its inputs come from `dense.resolve_inputs`: on the card from the dense
+preparation's kernels (`dense_prep`, csrc/dense_prep.cu, built into the
+same `raster_dense` library, 3 launches and a `torch.sort` a view), on the
+CPU from the plain chain `dense.resolve_inputs_plain`, which the card's
+tests hold those kernels to bit for bit. `launches` counts this kernel
+only; `dense_prep.launches` counts the preparation's.
 """
 
 from __future__ import annotations
