@@ -791,11 +791,9 @@ def fuse_and_save(name, mesh, rendered, probs, classes, workdir, device,
     return fused
 
 
-def planned_twice(name, plan, vertices, cams, probs, classes, device,
-                  overflow=0, **kw):
+def planned_twice(name, plan, vertices, cams, probs, classes, device, **kw):
     """Two fuse_views_planned batches (keywords `kw` passed on); both
-    bit-identical, each with `overflow` dropped (0, or the big rows past
-    the global bucket's cap: global_drops)."""
+    bit-identical, neither dropping anything."""
     import semantic_meshes_torch as smt
 
     width, height = cams[0].resolution
@@ -806,9 +804,9 @@ def planned_twice(name, plan, vertices, cams, probs, classes, device,
             plan, vertices, rot, trans, fl, pp, probs, IEW,
             num_primitives=len(plan.faces), aggregator="sum", height=height,
             width=width, device=device, **kw)
-        if int(ov) != overflow:
+        if int(ov):
             raise AssertionError(f"{name}: fuse_views_planned overflow "
-                                 f"{int(ov)}, expected {overflow}")
+                                 f"{int(ov)}, expected 0")
         runs.append(acc)
     if not torch.equal(runs[0], runs[1]):
         raise AssertionError(f"{name}: repeated fusion is not bit-identical")
@@ -1533,10 +1531,11 @@ def straddle_scene():
 
 def global_drops(vertices, faces, cams, device, lenses=None):
     """Per view, the big rows of the clipped setup past dense.N_GLOBAL:
-    the rows the reference's capped global bucket drops and counts in
-    overflow (a limit of its design, PERF.md), from the classification
-    alone, independent of the kernel. lenses: per-view lens wires; the
-    setup then runs under the virtual focal, as the render does."""
+    the rows a direct dense call at the JAX package's fixed cap drops and
+    counts in overflow, from the classification alone, independent of the
+    kernel (the renderers and plans size n_global past them). lenses:
+    per-view lens wires; the setup then runs under the virtual focal, as
+    the render does."""
     from semantic_meshes_torch import render
     from semantic_meshes_torch.rasterize import dense, tiles
 
@@ -1658,10 +1657,11 @@ def indoor_main_path(name, device, workdir):
     render_many -> MeshAggregator sum/summax/mul -> get -> colours -> PLY;
     plan_fuse(clip_near=True) compacts (split_k 0, remap None);
     fuse_views_planned twice, bit-identical, == per-view; fuse_views_split
-    == fuse_views; overflow == the big rows past n_global (global_drops;
-    0 for the tile rasterizer); every pixel covered in each view without
-    such drops (a closed room); the kernel once per view rasterized with
-    pairs. Returns what phase 5 reuses, with the same cameras' culled
+    == fuse_views at the plan's n_global; overflow 0 everywhere: the
+    renderer's probe and the plan size n_global past the big rows that a
+    direct call at dense.N_GLOBAL drops (global_drops); every pixel
+    covered in every view (a closed room); the kernel once per view
+    rasterized with pairs. Returns what phase 5 reuses, with the same cameras' culled
     batch."""
     import semantic_meshes_torch as smt
 
@@ -1688,11 +1688,10 @@ def indoor_main_path(name, device, workdir):
     many, _ = renderer.render_many(cams)
     if not torch.equal(many, torch.stack(rendered)):
         raise AssertionError(f"{label}: render_many != render")
-    if renderer.overflow_total() != 2 * total:
+    if renderer.overflow_total():
         raise AssertionError(f"{label}: render overflow "
-                             f"{renderer.overflow_total()}, expected "
-                             f"{2 * total}")
-    coverage = check_coverage(label, many, drops)
+                             f"{renderer.overflow_total()}, expected 0")
+    coverage = check_coverage(label, many, [0] * n_views)
     fused_sum = fuse_and_save(f"{name}_indoor", mesh, rendered, probs,
                               classes, workdir, device)
     plan = smt.distributed.plan_fuse(vertices, faces, rot, trans, fl, pp,
@@ -1701,16 +1700,16 @@ def indoor_main_path(name, device, workdir):
     if plan.split_k != 0 or plan.remap is not None:
         raise AssertionError(f"{label}: plan split_k {plan.split_k}")
     acc = planned_twice(label, plan, vertices, cams, probs, classes, device,
-                        overflow=total, clip_near=True)
+                        clip_near=True)
     unplanned, ov = smt.distributed.fuse_views(vertices, faces, rot, trans,
-                                               fl, pp, probs, IEW, **kw)
+                                               fl, pp, probs, IEW,
+                                               n_global=plan.n_global, **kw)
     split, ov_s = smt.distributed.fuse_views_split(vertices, faces, rot,
                                                    trans, fl, pp, probs, IEW,
                                                    **kw)
     torch.cuda.synchronize()
     launches = read_launches()
-    if int(ov) != total or int(ov_s) != total or not torch.equal(
-            split, unplanned):
+    if int(ov) or int(ov_s) or not torch.equal(split, unplanned):
         raise AssertionError(f"{label}: fuse_views_split != fuse_views "
                              f"(overflow {int(ov)}, {int(ov_s)})")
     # render, render_many, two planned batches, fuse_views (default
@@ -1725,15 +1724,17 @@ def indoor_main_path(name, device, workdir):
     bit = same_state(label, acc, fused_sum)
     if not torch.equal(unplanned, acc):
         raise AssertionError(f"{label}: fuse_views != fuse_views_planned")
-    extra = (f"dense budget {cap} (render), plan {plan.dense_e_cap}"
+    extra = (f"dense budget {cap} n_global "
+             f"{renderer.dense_cap_policy.n_global((height, width))} "
+             f"(render), plan {plan.dense_e_cap} n_global {plan.n_global}"
              if dense else "tile rasterizer")
     phase(
         f"phase 4: {label} ok: {n_views} views {width}x{height} inside a "
         f"{ROOM_SIZE} m room, {len(faces)} triangles, {classes} classes, "
         f"{extra}, split_k {plan.split_k}; prepare + render + render_many, "
         f"coverage per view {coverage}, sum/summax/mul fused, PLY saved and "
-        f"reloaded, overflow per batch {total} == the big rows past n_global "
-        f"per view {drops}, launches {launches}, dense_prep {prep}, planned "
+        f"reloaded, overflow 0 (a direct call at N_GLOBAL drops {total}: "
+        f"{drops} a view), launches {launches}, dense_prep {prep}, planned "
         f"== per-view "
         f"(bit-equal: {bit}), repeated fusion bit-identical, "
         "fuse_views_split == fuse_views == planned"
@@ -1765,8 +1766,9 @@ def indoor_texels01(device):
     prepare -> render -> render_many -> MeshAggregator sum/summax/mul ->
     get -> colours; fuse_views_texels(clip_near=True) under
     plan_fuse(allow_split=False, clip_near=True) twice, bit-identical,
-    == per-view; every id < P; overflow == the big rows past n_global
-    (global_drops); the card's ray-form shader ==
+    == per-view; every id < P; overflow 0 (n_global sized past the big
+    rows a direct call at dense.N_GLOBAL drops, global_drops); the card's
+    ray-form shader ==
     the CPU's bit for bit on every view, from the card's triangle ids;
     raster_dense once per view rasterized with pairs."""
     import semantic_meshes_torch as smt
@@ -1804,10 +1806,9 @@ def indoor_texels01(device):
     many, _ = renderer.render_many(cams)
     if not torch.equal(many, torch.stack(rendered)):
         raise AssertionError(f"{label}: render_many != render")
-    if renderer.overflow_total() != 2 * total:
+    if renderer.overflow_total():
         raise AssertionError(f"{label}: render overflow "
-                             f"{renderer.overflow_total()}, expected "
-                             f"{2 * total}")
+                             f"{renderer.overflow_total()}, expected 0")
     fused_sum = fuse_and_save(label, mesh, rendered, probs, classes, None,
                               device, texels=P)
     plan = smt.distributed.plan_fuse(
@@ -1819,14 +1820,15 @@ def indoor_texels01(device):
             renderer.vertices, plan.faces, renderer.resolutions,
             renderer.first_texel_index, rot, trans, fl, pp, probs, IEW,
             num_primitives=P, aggregator="sum", height=height, width=width,
-            clip_near=True, dense_e_cap=plan.dense_e_cap, device=device)
+            clip_near=True, dense_e_cap=plan.dense_e_cap,
+            n_global=plan.n_global, device=device)
 
     runs = []
     for _ in range(2):
         acc, ov = batch()
-        if int(ov) != total:
+        if int(ov):
             raise AssertionError(f"{label}: fuse_views_texels overflow "
-                                 f"{int(ov)}, expected {total}")
+                                 f"{int(ov)}, expected 0")
         runs.append(acc)
     torch.cuda.synchronize()
     launches = read_launches()
@@ -1871,8 +1873,8 @@ def indoor_texels01(device):
         f"CPU's on every face; dense budget {cap} (render), plan "
         f"{plan.dense_e_cap}; prepare + render + render_many, sum/summax/mul "
         f"fused, texel coverage {float((ids >= 0).double().mean())}, every "
-        f"id < P, overflow per batch {total} == the big rows past n_global "
-        f"{drops}, launches {launches}, the card's ray-form "
+        f"id < P, overflow 0 (a direct call at N_GLOBAL drops {total}: "
+        f"{drops} a view), launches {launches}, the card's ray-form "
         f"shader == the CPU's on every view, fuse_views_texels == per-view "
         f"(bit-equal: {bit}), repeated fusion bit-identical"
     )
@@ -1883,9 +1885,10 @@ def indoor_texels01(device):
 def indoor_scannet_lens(device):
     """Phase 4 at `scannet` indoor + SIMPLE_RADIAL k1 = RADIAL_SCANNET[0]
     on all views (clip_near=True, kernel B): render_many == per-view
-    render, clipped under the virtual focal; overflow == the big rows
-    past n_global under that focal (global_drops); raster_dense once per
-    view rendered with pairs."""
+    render, clipped under the virtual focal; overflow 0 (the probe under
+    that focal sizes n_global past the big rows a direct call at
+    dense.N_GLOBAL drops, global_drops); raster_dense once per view
+    rendered with pairs."""
     import semantic_meshes_torch as smt
 
     label = "scannet indoor + clip + SIMPLE_RADIAL"
@@ -1905,17 +1908,17 @@ def indoor_scannet_lens(device):
     launches = read_launches()
     if not torch.equal(many, torch.stack(rendered)):
         raise AssertionError(f"{label}: render_many != render")
-    if renderer.overflow_total() != 2 * sum(drops):
+    if renderer.overflow_total():
         raise AssertionError(f"{label}: overflow {renderer.overflow_total()}"
-                             f", expected {2 * sum(drops)}")
+                             ", expected 0")
     expect_launches(label, launches, "raster_dense",
                     2 * len(cams) if cap[0] > 0 else 0)
     coverage = [float((i.view(torch.int32) >= 0).double().mean())
                 for i in many]
     phase(f"phase 4: {label} ok: {len(cams)} views, dense budget {cap} "
           f"under the virtual focal; render_many == render, coverage per "
-          f"view {coverage}, overflow per batch {sum(drops)} == the big rows "
-          f"past n_global {drops}, launches {launches}")
+          f"view {coverage}, overflow 0 (a direct call at N_GLOBAL drops "
+          f"{sum(drops)}: {drops} a view), launches {launches}")
     return dict(launches=launches)
 
 

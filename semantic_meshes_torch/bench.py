@@ -278,7 +278,7 @@ def measure_preset(preset, repeats, device="cuda"):
         if texel_params is not None:
             return distributed.fuse_views_texels(
                 vertices, plan.faces, *texel_params, *cam_arrays, probs, IEW,
-                dense_e_cap=plan.dense_e_cap, **kw)
+                dense_e_cap=plan.dense_e_cap, n_global=plan.n_global, **kw)
         return distributed.fuse_views_planned(plan, vertices, *cam_arrays,
                                               probs, IEW, **kw)
 

@@ -56,15 +56,16 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
                           images_equal_weight, *, num_primitives, aggregator,
                           height, width, max_tris_per_tile=256,
                           prim_transform=None, face_vertices=None,
-                          clip_near=False, dense_e_cap=None, tri_ids=None,
-                          backend=None, resample_grid=None, group=None,
-                          y_offset=None, device="cuda"):
+                          clip_near=False, dense_e_cap=None, n_global=None,
+                          tri_ids=None, backend=None, resample_grid=None,
+                          group=None, y_offset=None, device="cuda"):
     """One fused render+aggregate step on one view.
 
     camera_arrays: (rotation, translation, focal_lengths, principal_point).
-    probs: (H, W, C); weights: optional (H, W). dense_e_cap: the dense
-    rasterizer's probed budget (FusePlan); tri_ids: (T,) ids to emit per
-    face row (a split plan's original face ids). prim_transform: optional
+    probs: (H, W, C); weights: optional (H, W). dense_e_cap, n_global:
+    the dense rasterizer's probed budget and global bucket's cap
+    (FusePlan); tri_ids: (T,) ids to emit per face row (a split plan's
+    original face ids). prim_transform: optional
     `fn(tri_index, depth, camera_arrays) -> (H, W) primitive ids` (the
     texel shader, or a sharded fuse's face-block merge); without it the
     triangle ids are the primitives.
@@ -87,8 +88,8 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
         y_offset=0.0 if y_offset is None else y_offset,
         height=height, width=width, max_tris_per_tile=max_tris_per_tile,
         face_vertices=face_vertices, clip_near=clip_near,
-        dense_e_cap=dense_e_cap, tri_ids=tri_ids, backend=backend,
-        device=device,
+        dense_e_cap=dense_e_cap, n_global=n_global, tri_ids=tri_ids,
+        backend=backend, device=device,
     )
     if prim_transform is not None:
         tri = prim_transform(tri, depth, camera_arrays)
@@ -127,9 +128,9 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
                principal_points, probs, images_equal_weight, weights=None,
                distortions=None, prim_remap=None, *, num_primitives,
                aggregator, height, width, max_tris_per_tile=256,
-               clip_near=False, dense_e_cap=None, backend=None,
-               predict_fn=None, prim_transform=None, shared_lens=False,
-               device="cuda"):
+               clip_near=False, dense_e_cap=None, n_global=None,
+               backend=None, predict_fn=None, prim_transform=None,
+               shared_lens=False, device="cuda"):
     """Render and fuse N views into one accumulator.
 
     rotations (N,3,3), translations (N,3), focal_lengths/principal_points
@@ -151,8 +152,9 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     a split plan returns its accumulator in original face order (the dense
     rasterizer writes the ids into its tables, see rasterize.rasterize).
     clip_near: render through the near-plane clipper (a clipped plan has
-    no prim_remap). dense_e_cap / backend: the dense budget and the
-    backend (plan_fuse).
+    no prim_remap). dense_e_cap / n_global / backend: the dense budget,
+    the global bucket's cap (None: dense.N_GLOBAL) and the backend
+    (plan_fuse).
     predict_fn: optional per-view hook `(H, W, ...) -> (H, W, C)` probs;
     `probs` then holds its inputs: a stack, or a tuple or list of stacks
     whose view i is the tuple of each stack's slice i (the JAX scan's
@@ -201,8 +203,8 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
                 max_tris_per_tile=max_tris_per_tile,
                 prim_transform=prim_transform, face_vertices=face_vertices,
                 clip_near=clip_near, dense_e_cap=dense_e_cap,
-                tri_ids=prim_remap, backend=backend, resample_grid=grid,
-                device=device,
+                n_global=n_global, tri_ids=prim_remap, backend=backend,
+                resample_grid=grid, device=device,
             )
             acc = delta if acc is None else acc + delta
             overflow = overflow + ov
@@ -216,19 +218,21 @@ def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
                       principal_points, probs, images_equal_weight,
                       weights=None, distortions=None, *, num_primitives,
                       aggregator, height, width, max_tris_per_tile=256,
-                      clip_near=False, dense_e_cap=None, backend=None,
-                      predict_fn=None, shared_lens=False, device="cuda"):
+                      clip_near=False, dense_e_cap=None, n_global=None,
+                      backend=None, predict_fn=None, shared_lens=False,
+                      device="cuda"):
     """Batched texel-mode fusion: fuse_views with the texel shader between
     the rasterizer and the fusion, so the primitives are a TexelsRenderer's
     texels (pass its reordered `faces`, `resolutions`, `first_texel_index`
     and getPrimitivesNum()). Returns (accumulator (P, C), overflow int32
     tensor), like fuse_views; no step syncs with the host.
 
-    dense_e_cap / backend: the dense budget of `plan_fuse(...,
-    allow_split=False)` (texel tables are per face, so a texel plan never
-    splits) and the backend it was planned for. distortions,
-    shared_lens: see fuse_views; texels shade under the virtual focal,
-    then the texel image is resampled onto the distorted pixels.
+    dense_e_cap / n_global / backend: the dense budget and global
+    bucket's cap of `plan_fuse(..., allow_split=False)` (texel tables are
+    per face, so a texel plan never splits) and the backend it was
+    planned for. distortions, shared_lens: see fuse_views; texels shade
+    under the virtual focal, then the texel image is resampled onto the
+    distorted pixels.
     predict_fn: see fuse_views. clip_near: rasterize the clipped pieces
     and shade with the camera-space ray form, as a TexelsRenderer(
     clip_near=True) does (pass its tables)."""
@@ -254,16 +258,18 @@ def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
         probs, images_equal_weight, weights, distortions,
         num_primitives=num_primitives, aggregator=aggregator, height=height,
         width=width, max_tris_per_tile=max_tris_per_tile,
-        clip_near=clip_near, dense_e_cap=dense_e_cap, backend=backend,
-        predict_fn=predict_fn, prim_transform=shade, shared_lens=shared_lens,
-        device=device,
+        clip_near=clip_near, dense_e_cap=dense_e_cap, n_global=n_global,
+        backend=backend, predict_fn=predict_fn, prim_transform=shade,
+        shared_lens=shared_lens, device=device,
     )
 
 
 class FusePlan:
     """Per-scene fusion plan from `plan_fuse`: the (possibly uni-permuted)
     faces to rasterize (on the device), the dense budget tuple (None for
-    the tile rasterizer), and, when the plan split, `remap`, the (T,) map
+    the tile rasterizer) and `n_global`, the global bucket's cap sized
+    from the same probe (dense.global_budget; None for the tile
+    rasterizer), and, when the plan split, `remap`, the (T,) map
     from the rasterizer's row ids to original face ids (faces[remap] is
     the permuted order). The remap rides the dense rasterizer's tables, so
     the accumulator lands in original face order and depth ties break by
@@ -271,13 +277,14 @@ class FusePlan:
     shares one lens and intrinsics (see lens_shared), so the fusions may
     compute the undistortion grid once."""
 
-    __slots__ = ("faces", "dense_e_cap", "remap", "micro_max", "split_k",
-                 "lens_shared")
+    __slots__ = ("faces", "dense_e_cap", "n_global", "remap", "micro_max",
+                 "split_k", "lens_shared")
 
     def __init__(self, faces, dense_e_cap, remap=None, micro_max=None,
-                 split_k=0, lens_shared=False):
+                 split_k=0, lens_shared=False, n_global=None):
         self.faces = faces
         self.dense_e_cap = dense_e_cap
+        self.n_global = n_global
         self.remap = remap  # (T,) int32 permuted id -> original id
         self.micro_max = micro_max  # routing threshold probed (or None)
         self.split_k = split_k  # uni-prefix length (0 = no split)
@@ -297,7 +304,8 @@ def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
     compaction (dense.split_wins; the two are mutually exclusive).
     allow_split=False always plans compaction, and so does clip_near: its
     probes count the 2T piece rows, and a uni prefix would permute faces,
-    not pieces. distortions: (N, 4|9) lens
+    not pieces. The same probe's largest global bucket sizes the plan's
+    n_global (dense.global_budget). distortions: (N, 4|9) lens
     wires or None; the probes then run under each view's virtual focal
     (render._distortion_scales), the focal its render rasterizes with. A
     few host syncs in all, never one per view."""
@@ -323,13 +331,17 @@ def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
                   device=device)
         if micro_max is None:
             curve = dense.routing_stats_batch(None, None, *cams,
-                                              clip_near=clip_near, **kw)
-            pairs, micro, micro_max = dense.pick_route(curve.tolist(), n_rows,
+                                              clip_near=clip_near,
+                                              **kw).tolist()
+            pairs, micro, micro_max = dense.pick_route(curve, n_rows,
                                                        **(route or {}))
+            big = curve[0][2]
         else:
-            pairs, micro = dense.candidate_stats_batch(
+            pairs, micro, big = dense.candidate_stats_batch(
                 None, None, *cams, clip_near=clip_near, micro_max=micro_max,
                 **kw).tolist()
+        # a uni-first permutation moves rows, so it keeps this count
+        n_global = dense.global_budget(big)
 
         if allow_split and not clip_near:
             perm, k = dense.uni_order(None, None, *cams, **kw)
@@ -342,13 +354,13 @@ def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
                     faces_t[perm_t],
                     (dense.BUDGET_MARGIN * pairs_s, 0, micro_max, k),
                     remap=perm_t.to(torch.int32), micro_max=micro_max,
-                    split_k=k, lens_shared=shared,
+                    split_k=k, lens_shared=shared, n_global=n_global,
                 )
         return FusePlan(
             faces_t,
             (dense.BUDGET_MARGIN * pairs, dense.BUDGET_MARGIN * micro,
              micro_max),
-            micro_max=micro_max, lens_shared=shared,
+            micro_max=micro_max, lens_shared=shared, n_global=n_global,
         )
 
 
@@ -358,9 +370,10 @@ def fuse_views_planned(plan, vertices, rotations, translations,
                        num_primitives, aggregator, height, width, **kwargs):
     """fuse_views under a FusePlan (no probes). The accumulator comes out
     in original face order even when the plan split. Equals
-    fuse_views(faces) on the plan's backend. A plan whose views share one
-    lens hoists the grid, once lens_shared has held for this batch's
-    `distortions` too (a plan may be reused on other views)."""
+    fuse_views(faces) on the plan's backend, budget and n_global. A plan
+    whose views share one lens hoists the grid, once lens_shared has held
+    for this batch's `distortions` too (a plan may be reused on other
+    views)."""
     if plan.dense_e_cap is not None:
         kwargs.setdefault("backend", "dense")
     dists = kwargs.get("distortions")
@@ -372,7 +385,7 @@ def fuse_views_planned(plan, vertices, rotations, translations,
         principal_points, probs, images_equal_weight, weights,
         prim_remap=plan.remap, num_primitives=num_primitives,
         aggregator=aggregator, height=height, width=width,
-        dense_e_cap=plan.dense_e_cap, **kwargs,
+        dense_e_cap=plan.dense_e_cap, n_global=plan.n_global, **kwargs,
     )
 
 

@@ -11,6 +11,11 @@ anecdotes and tqdm only). Here:
   while a profiler runs, `annotate(name)`; otherwise one shared null
   context, so an untraced call costs one `_profiler_enabled()` check,
 - `timings()`: the global timers' `as_dict()`,
+- `counter_max(name, value)` / `counters()`: the program's counters, each
+  the largest value recorded under its name in this process (set-up
+  facts the benchmark reads: `dense.global_rows`, the largest global
+  bucket a dense budget probe found in one view, and `dense.n_global`,
+  the cap sized from it),
 - `trace_to(dir, device)`: a trace of the host and, on a CUDA device, of
   the card, written as a Chrome trace `dir/trace.json` (viewable in
   perfetto),
@@ -123,6 +128,20 @@ def report():
 def timings():
     """The global timers: {phase: {total_s, calls, median_s}}."""
     return _global_timers.as_dict()
+
+
+_counters = {}
+
+
+def counter_max(name, value):
+    """Raise counter `name` to `value` (host int) if it is below it."""
+    value = int(value)
+    _counters[name] = max(_counters.get(name, value), value)
+
+
+def counters():
+    """The program's counters: {name: largest value recorded}."""
+    return dict(_counters)
 
 
 def times_ms(fn, reps, device, warmup=0):

@@ -85,7 +85,7 @@ def dense_kwargs(dense_e_cap):
 
 
 def rasterize(vertices, faces, *args, backend=None, tri_ids=None,
-              dense_e_cap=None, **kwargs):
+              dense_e_cap=None, n_global=None, **kwargs):
     """(ids (H, W) int32 with -1 empty, depth (H, W) f32, overflow) — see
     tile_kernel.rasterize and dense.rasterize.
 
@@ -96,9 +96,12 @@ def rasterize(vertices, faces, *args, backend=None, tri_ids=None,
     by face row there. With clip_near the tile backend remaps after its
     piece ids are mapped back to triangles; the dense backend refuses
     tri_ids (its rows are clip pieces, not faces). dense_e_cap: a probed
-    dense budget (dense_kwargs); ignored by the tile backend."""
+    dense budget (dense_kwargs); n_global: the dense global bucket's cap
+    (None: dense.N_GLOBAL); both ignored by the tile backend."""
     if check_backend(faces.shape[0], backend) == "dense":
         kwargs.pop("max_tris_per_tile", None)
+        if n_global is not None:
+            kwargs["n_global"] = int(n_global)
         return dense.rasterize(vertices, faces, *args, tri_ids=tri_ids,
                                **dense_kwargs(dense_e_cap), **kwargs)
     idx, z, overflow = tile_kernel.rasterize(vertices, faces, *args, **kwargs)

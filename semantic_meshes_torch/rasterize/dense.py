@@ -7,7 +7,8 @@ DENSE_THRESHOLD faces or more (ScanNet scale), in four steps per view:
    its pixel-centre bbox is at most micro_max x micro_max, "small" when it
    spans at most 2x2 tiles (up to 4 (tile, triangle) pairs), "big"
    otherwise (one pair in a global bucket that every tile tests, capped at
-   n_global);
+   n_global: N_GLOBAL, the JAX package's, in a direct call; the renderers
+   and plan_fuse size it from their probe, `global_budget`);
 2. one stable sort of the T x 5 pairs by tile id (ascending triangle ids
    within a tile) and `searchsorted` for each tile's range `starts`; the
    pair budget e_cap and the n_global cap count every pair they drop in
@@ -50,7 +51,7 @@ from __future__ import annotations
 import torch
 
 from ..data import resolve_device
-from ..profiling import span
+from ..profiling import counter_max, span
 from . import dense_kernel, dense_prep, tile_kernel, tiles
 
 TILE_H = dense_kernel.TILE_H
@@ -490,10 +491,28 @@ def _setups(vertices, faces, rotations, translations, focal_lengths,
 
 
 def _stats(setup, height, width, y_offset, micro_max, micro_split):
+    """(pairs, micro rows, big rows) of one view as a (3,) int32 tensor.
+    The big rows are the global bucket before the n_global cap; they do
+    not depend on micro_max or micro_split (a micro row spans at most 8
+    pixels, so it would be small otherwise)."""
     micro, small, big, _, _, span_h, span_w = _classify(
         setup, height, width, y_offset, micro_max, micro_split)
     return torch.stack([_pair_count(small, big, span_h, span_w),
-                        micro.sum().to(torch.int32)])
+                        micro.sum().to(torch.int32),
+                        big.sum().to(torch.int32)])
+
+
+def global_budget(rows, floor=0):
+    """The global bucket's cap for a probed largest bucket of `rows` big
+    rows a view: BUDGET_MARGIN x rows, and at least N_GLOBAL (the JAX
+    package's fixed cap, which a direct rasterize call keeps) and the
+    grow-only `floor`. Kernel B tests min(bucket, cap) global rows, so a
+    cap above the bucket costs nothing. The profiling counters
+    `dense.global_rows` and `dense.n_global` record both."""
+    n_global = max(N_GLOBAL, BUDGET_MARGIN * int(rows), int(floor))
+    counter_max("dense.global_rows", rows)
+    counter_max("dense.n_global", n_global)
+    return n_global
 
 
 def candidate_count(vertices, faces, rotation, translation, focal_lengths,
@@ -512,9 +531,9 @@ def candidate_stats(vertices, faces, rotation, translation, focal_lengths,
                     principal_point, y_offset=0.0, face_vertices=None, *,
                     height, width, clip_near=False, micro_max=None,
                     micro_split=None, device="cuda"):
-    """(pairs, micro triangles) of one view as a (2,) int32 device tensor:
-    the probe for `e_cap_rows` and `micro_cap_rows` (with clip_near, of
-    the 2T piece rows)."""
+    """(pairs, micro triangles, big triangles) of one view as a (3,) int32
+    device tensor: the probe for `e_cap_rows`, `micro_cap_rows` and
+    `n_global` (with clip_near, of the 2T piece rows)."""
     _check_micro_max(micro_max)
     setup = tiles.setup_inputs(vertices, faces, rotation, translation,
                                focal_lengths, principal_point, face_vertices,
@@ -602,8 +621,9 @@ def uni_order(vertices, faces, rot, trans, fl, pp, *, height, width,
 
 def routing_curve(setup, height, width, y_offset,
                   thresholds=ROUTING_THRESHOLDS):
-    """(len(thresholds), 2) int32 of (pairs, micro triangles) per routing
-    threshold (one elementwise pass per threshold, no sort)."""
+    """(len(thresholds), 3) int32 of (pairs, micro triangles, big
+    triangles) per routing threshold (one elementwise pass per threshold,
+    no sort; the big column is the same in every row)."""
     return torch.stack([_stats(setup, height, width, y_offset, m, None)
                         for m in thresholds])
 
@@ -687,7 +707,8 @@ def pick_route(curve, n_setup_rows, thresholds=ROUTING_THRESHOLDS,
                min_pairs_budget=0, **coeffs):
     """(pairs, micro, micro_max) at the pick_micro_max threshold: the probe
     -> pick -> budget step the renderers and plan_fuse share (scale the
-    first two by BUDGET_MARGIN for budgets)."""
+    first two by BUDGET_MARGIN for budgets). A curve's columns past the
+    second (the big rows) are not read."""
     curve = [(int(r[0]), int(r[1])) for r in curve]
     m = pick_micro_max(curve, n_setup_rows, thresholds, min_pairs_budget,
                        **coeffs)

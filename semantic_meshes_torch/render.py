@@ -179,12 +179,14 @@ class _OverflowPolicy:
 class _DenseCapPolicy:
     """Right-sizes the dense rasterizer's budgets per resolution.
 
-    The exact (pairs, micro) counts are probed once per resolution (one
-    sync) and budgeted with a 2x margin. render_many and prepare probe the
-    max over their whole batch; for single renders, a later view above the
-    margin spills to the overflow counter, and when the overflow policy
-    finds the breach the cap is invalidated, so the next render re-probes
-    with a grow-only floor.
+    The exact (pairs, micro, big rows) counts are probed once per
+    resolution (one sync) and budgeted with a 2x margin; the big rows
+    size the global bucket's cap n_global (dense.global_budget, at least
+    dense.N_GLOBAL). render_many and prepare probe the max over their
+    whole batch; for single renders, a later view above the margin spills
+    to the overflow counter, and when the overflow policy finds the
+    breach the cap is invalidated, so the next render re-probes with a
+    grow-only floor.
     """
 
     MARGIN = 2
@@ -192,6 +194,8 @@ class _DenseCapPolicy:
     def __init__(self):
         self._cap = {}  # (H, W) -> (pair rows, micro rows[, micro_max])
         self._floor = {}  # (H, W) -> previous cap (grow-only re-probes)
+        self._n_global = {}  # (H, W) -> the global bucket's cap
+        self._global_floor = {}  # (H, W) -> twice the breached n_global
 
     def lookup(self, key, probe):
         """probe() -> exact (pairs, micro[, micro_max]) host ints for the
@@ -208,6 +212,17 @@ class _DenseCapPolicy:
                 max(self.MARGIN * vals[1], floor[1]),
             ) + vals[2:]
         return self._cap[key]
+
+    def size_global(self, key, rows):
+        """Size key's n_global from a probe's largest global bucket (big
+        rows in one view), over its grow-only floor."""
+        self._n_global[key] = rast.dense.global_budget(
+            rows, self._global_floor.get(key, 0))
+
+    def n_global(self, key):
+        """The global bucket's cap in force at key (dense.N_GLOBAL before
+        any probe sized it)."""
+        return self._n_global.get(key, rast.dense.N_GLOBAL)
 
     def floor(self, key):
         """Grow-only budget floor of a key (nonzero after a breach): a
@@ -227,6 +242,9 @@ class _DenseCapPolicy:
                 max(2 * cap[0], 256),
                 max(2 * cap[1], 256),
             )
+        n_global = self._n_global.pop(key, None)
+        if n_global is not None:
+            self._global_floor[key] = 2 * n_global
 
 
 def _batch(rot, trans, fl, pp):
@@ -239,8 +257,9 @@ def _batch(rot, trans, fl, pp):
 
 def _dense_count_probe(face_vertices, rot, trans, fl, pp, *, height, width,
                        clip_near=False, micro_max=None, device="cuda"):
-    """Max dense-path (pairs, micro) over a camera batch as a (2,) device
-    tensor: the _DenseCapPolicy probe at a fixed routing threshold."""
+    """Max dense-path (pairs, micro, big rows) over a camera batch as a
+    (3,) device tensor: the _DenseCapPolicy probe at a fixed routing
+    threshold."""
     return rast.dense.candidate_stats_batch(
         None, None, rot, trans, fl, pp, face_vertices=face_vertices,
         height=height, width=width, clip_near=clip_near, micro_max=micro_max,
@@ -249,9 +268,9 @@ def _dense_count_probe(face_vertices, rot, trans, fl, pp, *, height, width,
 
 def _dense_routing_probe(face_vertices, rot, trans, fl, pp, *, height, width,
                          clip_near=False, device="cuda"):
-    """Max (pairs, micro) per routing threshold over a camera batch as a
-    (len(ROUTING_THRESHOLDS), 2) device tensor: the automatic routing
-    probe."""
+    """Max (pairs, micro, big rows) per routing threshold over a camera
+    batch as a (len(ROUTING_THRESHOLDS), 3) device tensor: the automatic
+    routing probe."""
     return rast.dense.routing_stats_batch(
         None, None, rot, trans, fl, pp, face_vertices=face_vertices,
         height=height, width=width, clip_near=clip_near, device=device)
@@ -354,8 +373,9 @@ class TrianglesRenderer:
 
     def _dense_e_cap(self, height, width, rot, trans, fl, pp, dist=None):
         """The dense budget tuple for (height, width), probed over the
-        given cameras (a batch, or one camera) on first use; None for the
-        tile backend. dist: the cameras' lenses (None for pinholes); the
+        given cameras (a batch, or one camera) on first use, the same
+        probe sizing the global bucket's cap (dense_cap_policy.n_global);
+        None for the tile backend. dist: the cameras' lenses (None for pinholes); the
         probe then runs under each view's virtual focal fl * s, the focal
         its render rasterizes with."""
         n_faces = int(self.faces.shape[0])
@@ -377,21 +397,24 @@ class TrianglesRenderer:
                                    height=height, width=width)
             return rot, trans, fl * s.cpu().numpy()[:, None], pp
 
+        policy = self.dense_cap_policy
         if self.micro_max is None:
             def probe():
                 curve = _dense_routing_probe(self.face_vertices, *cams(),
-                                             **kw)
+                                             **kw).tolist()
+                policy.size_global(key, curve[0][2])
                 return rast.dense.pick_route(
-                    curve.tolist(), rows,
-                    min_pairs_budget=self.dense_cap_policy.floor(key)[0],
+                    curve, rows, min_pairs_budget=policy.floor(key)[0],
                     **self.route,
                 )
         else:
             def probe():
-                stats = _dense_count_probe(self.face_vertices, *cams(),
-                                           micro_max=self.micro_max, **kw)
-                return stats.tolist() + [self.micro_max]
-        return self.dense_cap_policy.lookup(key, probe)
+                pairs, micro, big = _dense_count_probe(
+                    self.face_vertices, *cams(), micro_max=self.micro_max,
+                    **kw).tolist()
+                policy.size_global(key, big)
+                return pairs, micro, self.micro_max
+        return policy.lookup(key, probe)
 
     def _view(self, camera, dense_e_cap, dist=None):
         """(ids (W, H) int32 with -1 empty, depth (W, H) f32, overflow) of
@@ -414,6 +437,7 @@ class TrianglesRenderer:
             height=height, width=width,
             max_tris_per_tile=self.max_tris_per_tile,
             clip_near=self.clip_near, dense_e_cap=dense_e_cap,
+            n_global=self.dense_cap_policy.n_global((height, width)),
             device=self.device,
         )
         ids = self._shade(arrays, tri)

@@ -58,12 +58,13 @@ def main(argv=None):
     probs = device_probs(args.views, H, W, args.classes, device)
     kw = dict(face_vertices=sc.fv, height=H, width=W, device=device)
 
-    pairs, micro = dense.candidate_stats(None, None, *cam, **kw).tolist()
+    pairs, micro, _ = dense.candidate_stats(None, None, *cam,
+                                            **kw).tolist()
     mb.emit(triangles=sc.T, pairs=pairs, micro_tris=micro,
             micro_max=dense.MICRO_MAX)
     for m in ROUTING:
-        p, mu = dense.candidate_stats(None, None, *cam, micro_max=m,
-                                      **kw).tolist()
+        p, mu, _ = dense.candidate_stats(None, None, *cam, micro_max=m,
+                                         **kw).tolist()
         mb.emit(routing_micro_max=m, pairs=p, micro_tris=mu,
                 fragment_rows=m * m * mu)
 
@@ -83,7 +84,8 @@ def main(argv=None):
     timed("full planned step", lambda: distributed.render_and_accumulate(
         vertices, plan.faces, cam, probs[0], None, IEW,
         face_vertices=plan_fv, dense_e_cap=plan.dense_e_cap,
-        tri_ids=plan.remap, backend="dense", **fuse_kw))
+        n_global=plan.n_global, tri_ids=plan.remap, backend="dense",
+        **fuse_kw))
     batch_ms = mb.median_ms(lambda: distributed.fuse_views_planned(
         plan, vertices, *sc.arrays, probs, IEW, **fuse_kw),
         max(2, args.repeats // 4), device)

@@ -198,7 +198,8 @@ def main(argv=None):
     # probabilities and the count column, already weighted
     data = torch.rand((H, W, C + 1), generator=gen, device=device)
     kw = dict(face_vertices=sc.fv, height=H, width=W, device=device)
-    pairs, micro = dense.candidate_stats(None, None, *cam, **kw).tolist()
+    pairs, micro, _ = dense.candidate_stats(None, None, *cam,
+                                            **kw).tolist()
     e_cap = 2 * pairs
     idx_img = dense.rasterize(None, None, *cam, e_cap_rows=e_cap,
                               micro_cap_rows=2 * micro, **kw)[0]

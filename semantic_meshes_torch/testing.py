@@ -292,6 +292,29 @@ def _screen_tris(rng, n, box, size, z=(2.0, 10.0)):
     return p, rng.uniform(*z, size=(n, 3))
 
 
+def big_rows_scene(n=1500, width=128, height=64, seed=0):
+    """A mesh of n large triangles in front of one pinhole camera (identity
+    pose, focal 0.9 x height, centred), each facing the camera at a depth
+    of 2-10, with one vertex above the frame, one below it and x within
+    0.3 widths of it: each spans every row of dense tiles, so all go to
+    the dense path's global bucket, past N_GLOBAL (1024) at the default
+    n. Returns (vertices (3n, 3) f32, faces (n, 3) int32, Camera)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-0.3 * width, 1.3 * width, (n, 3))
+    y = np.stack([rng.uniform(-0.6 * height, 0.0, n),
+                  rng.uniform(height, 1.6 * height, n),
+                  rng.uniform(-0.6 * height, 1.6 * height, n)], axis=1)
+    z = np.repeat(rng.uniform(2.0, 10.0, (n, 1)), 3, axis=1)
+    focal = 0.9 * height
+    xyz = np.stack([(x - width / 2) * z / focal,
+                    (y - height / 2) * z / focal, z], axis=-1)
+    cam = Camera(np.eye(3, dtype=np.float32), np.zeros(3, np.float32),
+                 np.array([width, height]), np.full(2, focal, np.float32),
+                 np.array([width / 2, height / 2], np.float32))
+    return (xyz.reshape(-1, 3).astype(np.float32),
+            np.arange(3 * n, dtype=np.int32).reshape(n, 3), cam)
+
+
 def _adversarial_tris(rng, n, box):
     """Slivers, sub-pixel triangles, collinear ones, and triangles with
     vertices far off screen or large enough to overflow the edge forms."""

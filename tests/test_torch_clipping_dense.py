@@ -41,7 +41,9 @@ def _grazing_view():
 
 def test_dense_probes_count_pieces_as_jax():
     """candidate_stats(_batch), routing_stats and uni_eligible under
-    clip_near count the 2T piece rows as JAX's do (op by op)."""
+    clip_near count the 2T piece rows as JAX's do (op by op); the port's
+    third column, the big rows of the global bucket, is the
+    classification's own count at every threshold."""
     vertices, faces, cam = _grazing_view()
     kw = dict(height=H, width=W, clip_near=True)
     with jax.disable_jit():
@@ -52,12 +54,17 @@ def test_dense_probes_count_pieces_as_jax():
         want_uni = np.asarray(jdense.uni_eligible(vertices, faces, *cam,
                                                   **kw))
     stats = dense.candidate_stats(vertices, faces, *cam, device="cpu", **kw)
-    np.testing.assert_array_equal(stats.numpy(), want_stats)
+    np.testing.assert_array_equal(stats.numpy()[:2], want_stats)
     batch = dense.candidate_stats_batch(
         vertices, faces, *(np.stack([c, c]) for c in cam), device="cpu", **kw)
-    np.testing.assert_array_equal(batch.numpy(), want_stats)
+    np.testing.assert_array_equal(batch.numpy(), stats.numpy())
     curve = dense.routing_stats(vertices, faces, *cam, device="cpu", **kw)
-    np.testing.assert_array_equal(curve.numpy(), want_curve)
+    np.testing.assert_array_equal(curve.numpy()[:, :2], want_curve)
+    setup = dense.tiles.setup_inputs(vertices, faces, *cam, None, "cpu",
+                                     True)
+    big = int(dense._classify(setup, H, W, 0.0)[2].sum())
+    assert big == 12 and (curve.numpy()[:, 2] == big).all()
+    assert int(stats[2]) == big
     uni = dense.uni_eligible(vertices, faces, *cam, device="cpu", **kw)
     np.testing.assert_array_equal(uni.numpy(), want_uni)
     assert uni.shape[0] == 2 * len(faces) and want_stats[0] > 0

@@ -100,7 +100,9 @@ PROBE_KW = {
 
 @pytest.mark.parametrize("kw", sorted(PROBE_KW))
 def test_candidate_probes_match_jax(kw):
-    """candidate_count / candidate_stats, single view and batched."""
+    """candidate_count / candidate_stats, single view and batched; the
+    port's third column (big rows) is held to a direct count in
+    tests/test_torch_global_cap.py."""
     kw = PROBE_KW[kw]
     v, f = sc.uni_scene()
     rot, trans, fl, pp = _views(4, 256, 96)
@@ -119,10 +121,10 @@ def test_candidate_probes_match_jax(kw):
         got = dense.candidate_stats(v, f, rot[i], trans[i], fl[i], pp[i],
                                     device="cpu", **dims, **kw)
         assert got.dtype == torch.int32
-        np.testing.assert_array_equal(got.numpy(), want[i])
+        np.testing.assert_array_equal(got.numpy()[:2], want[i])
     got = dense.candidate_stats_batch(v, f, rot, trans, fl, pp,
                                       device="cpu", **dims, **kw)
-    np.testing.assert_array_equal(got.numpy(), want_batch)
+    np.testing.assert_array_equal(got.numpy()[:2], want_batch)
     np.testing.assert_array_equal(want_batch, np.max(want, axis=0))
     assert int(dense.candidate_count_batch(
         v, f, rot, trans, fl, pp, device="cpu", **dims, **kw)) == \
@@ -174,17 +176,17 @@ def test_routing_probes_match_jax():
             pp, clip_near=False, **dims))
     got_one = dense.routing_stats(v, f, rot[0], trans[0], fl[0], pp[0],
                                   device="cpu", **dims)
-    np.testing.assert_array_equal(got_one.numpy(), want_one)
+    np.testing.assert_array_equal(got_one.numpy()[:, :2], want_one)
     got = render._dense_routing_probe(torch.from_numpy(fv), rot, trans, fl,
                                       pp, device="cpu", **dims)
-    np.testing.assert_array_equal(got.numpy(), want_batch)
+    np.testing.assert_array_equal(got.numpy()[:, :2], want_batch)
     for i, m in enumerate(dense.ROUTING_THRESHOLDS):
         row = dense.candidate_stats(v, f, rot[0], trans[0], fl[0], pp[0],
                                     micro_max=m, device="cpu", **dims)
         np.testing.assert_array_equal(got_one[i].numpy(), row.numpy())
     stats = render._dense_count_probe(torch.from_numpy(fv), rot, trans, fl,
                                       pp, micro_max=3, device="cpu", **dims)
-    np.testing.assert_array_equal(stats.numpy(), want_batch[1])
+    np.testing.assert_array_equal(stats.numpy()[:2], want_batch[1])
 
 
 CURVES = [

@@ -108,7 +108,7 @@ def test_tile_reduce_equals_the_flat_segment_sum():
     cam, P = sc.cams[0], sc.T
     gen = torch.Generator().manual_seed(1)
     data = torch.rand((H, W, C + 1), generator=gen)
-    pairs, micro = dense.candidate_stats(None, None, *cam,
+    pairs, micro, _ = dense.candidate_stats(None, None, *cam,
                                          face_vertices=sc.fv, height=H,
                                          width=W, device="cpu").tolist()
     idx = dense.rasterize(None, None, *cam, face_vertices=sc.fv, height=H,
