@@ -119,10 +119,20 @@ each phase prints a line and raises on failure:
    clipper and the clipped setup per view (launched and in graph
    replays) against the culled setup; the dense preparation at `scannet`
    per view (dense_prep kernels and sort, launched and in graph replays,
-   the plain chain launched) against the bound of the bytes it moves.
+   the plain chain launched) against the bound of the bytes it moves;
+   fusion of one view (fusion_kernel: the fusion kernels and the sort) at
+   the benchmark's `scannet-eval`, `cityscapes-demo` and `scannet-room`
+   shapes, on 8 rendered views each: == the plain chain
+   (fusion._segment_sums_plain) on every view (rows inside one chunk of
+   sorted positions bit for bit, the others within rtol 1e-5) and
+   bit-identical twice, then per view its ms (graph replays and
+   launched), each kernel's device ms without the sort, the launch calls,
+   the plain chain's ms and launch calls, and the bound of its bytes.
    The kernel line's `launches` counts `large` and `scannet`;
    `launches_by_path` every path's run; its `dense_prep` row the
-   preparation's.
+   preparation's, its `fusion` row the fusion kernels' (every window
+   that reads the counters holds them to 3 launches for each view the
+   window fused on the card).
 
 6. the ScanNet eval path (eval_scannet.py around the renderer, the model
    left out) at `scannet`, every step a PhaseTimers phase: a
@@ -691,19 +701,50 @@ def dense_vs_plain(device):
 
 
 # windows of read_launches where a dense view was prepared off the
-# dense_prep kernels' route or with other than their launches; main (and
-# each sharded rank) raises at its end if any
+# dense_prep kernels' route or with other than their launches, or a view
+# fused on the card off the fusion kernels' route; main (and each sharded
+# rank) raises at its end if any
 PREP_FAULTS = []
+
+# views given to fusion._accumulate_view on the card since reset_launches
+# (count_fused's wrapper counts them)
+FUSED = {"views": 0}
+
+
+def count_fused():
+    """Wrap fusion._accumulate_view, once a process, so that every view it
+    is given on the card counts in FUSED. MeshAggregator.add and
+    distributed.view_accumulate (every fuse_views path, the sharded fuse)
+    call it through the module, so the count is the views the window fused,
+    kept apart from fusion_kernel's own counters."""
+    from semantic_meshes_torch import fusion
+
+    inner = fusion._accumulate_view
+    if getattr(inner, "counts_fused", False):
+        return
+
+    def accumulate_view(prim, probs, *args, **kwargs):
+        if probs.is_cuda:
+            FUSED["views"] += 1
+        return inner(prim, probs, *args, **kwargs)
+
+    accumulate_view.counts_fused = True
+    fusion._accumulate_view = accumulate_view
 
 
 def reset_launches():
+    from semantic_meshes_torch import fusion_kernel
     from semantic_meshes_torch.rasterize import (dense_kernel, dense_prep,
                                                  tile_kernel)
 
+    count_fused()
     tile_kernel.launches = 0
     dense_kernel.launches = 0
     dense_prep.launches = 0
     dense_prep.views = 0
+    fusion_kernel.launches = 0
+    fusion_kernel.views = 0
+    FUSED["views"] = 0
 
 
 def read_launches():
@@ -711,15 +752,23 @@ def read_launches():
     dense_prep kernels prepared every dense view of the window: 3 launches
     a view whose pairs kernel B then resolved, 2 a view with no pair
     budget (no kernel B), so their launches are 2 a view prepared plus
-    raster_dense's; a window that breaks it goes to PREP_FAULTS."""
-    from semantic_meshes_torch.rasterize import (dense_kernel, dense_prep,
-                                                 tile_kernel)
+    raster_dense's; and that the fusion kernels fused every view the
+    window fused on the card (FUSED), 3 launches a view. A window that
+    breaks either goes to PREP_FAULTS."""
+    from semantic_meshes_torch.rasterize import dense_kernel, tile_kernel
 
     prep = read_prep()
     if prep["launches"] != 2 * prep["views"] + dense_kernel.launches:
         PREP_FAULTS.append(
             f"{prep['launches']} dense_prep launches for {prep['views']} "
             f"views prepared and {dense_kernel.launches} of raster_dense")
+    fused = read_fusion()
+    if (fused["views"] != FUSED["views"]
+            or fused["launches"] != 3 * fused["views"]):
+        PREP_FAULTS.append(
+            f"{fused['launches']} fusion kernel launches for "
+            f"{fused['views']} views, of {FUSED['views']} views fused on "
+            "the card")
     return {"raster_tile": tile_kernel.launches,
             "raster_dense": dense_kernel.launches}
 
@@ -730,6 +779,22 @@ def read_prep():
     from semantic_meshes_torch.rasterize import dense_prep
 
     return {"launches": dense_prep.launches, "views": dense_prep.views}
+
+
+def read_fusion():
+    """{"launches", "views"} of the fusion kernels since reset_launches."""
+    from semantic_meshes_torch import fusion_kernel
+
+    return {"launches": fusion_kernel.launches, "views": fusion_kernel.views}
+
+
+def check_fusion(label, fused, views):
+    """Raises unless the fusion kernels fused `views` views, 3 launches a
+    view."""
+    want = {"launches": 3 * views, "views": views}
+    if fused != want:
+        raise AssertionError(f"{label}: fusion kernels {fused}, expected "
+                             f"{want}")
 
 
 def check_prep(label, prep, budgets):
@@ -747,8 +812,9 @@ def check_prep(label, prep, budgets):
 
 def raise_prep_faults():
     if PREP_FAULTS:
-        raise AssertionError("dense views prepared off the dense_prep "
-                             "kernels' route: " + " | ".join(PREP_FAULTS))
+        raise AssertionError("views prepared off the dense_prep kernels' "
+                             "route or fused off the fusion kernels': "
+                             + " | ".join(PREP_FAULTS))
 
 
 def fuse_and_save(name, mesh, rendered, probs, classes, workdir, device,
@@ -860,6 +926,9 @@ def main_path(name, device, workdir):
     launches = read_launches()
     prep = read_prep()
     check_prep(name, prep, rasterized if dense else [])
+    # sum, summax and mul by add, then two planned batches
+    fused = read_fusion()
+    check_fusion(name, fused, 5 * n_views)
 
     kernel = "raster_dense" if dense else "raster_tile"
     other = "raster_tile" if dense else "raster_dense"
@@ -878,14 +947,15 @@ def main_path(name, device, workdir):
         f"phase 4: main path at {name} ok: {n_views} views {width}x{height}, "
         f"{len(faces)} triangles, {classes} classes, {extra}sum/summax/mul "
         f"fused, PLY saved and reloaded, overflow 0, launches {launches} == "
-        f"{expect} views rasterized with pairs, dense_prep {prep}, planned "
-        f"== per-view "
+        f"{expect} views rasterized with pairs, dense_prep {prep}, fusion "
+        f"{fused}, planned == per-view "
         f"(bit-equal: {torch.equal(acc, fused_sum)}), repeated fusion "
         "bit-identical"
     )
     return dict(vertices=vertices, faces=faces, cams=cams, probs=probs,
                 plan=plan, rot=rot, trans=trans, fl=fl, pp=pp, cap=cap,
-                launches=launches[kernel], prep_launches=prep["launches"])
+                launches=launches[kernel], prep_launches=prep["launches"],
+                fusion_launches=fused["launches"])
 
 
 def dense_preset(device):
@@ -910,6 +980,8 @@ def dense_preset(device):
     prep = read_prep()
     check_prep("dense", prep, [plans[True].dense_e_cap] * (2 * n_views)
                + [plans[False].dense_e_cap] * (2 * n_views))
+    fused = read_fusion()
+    check_fusion("dense", fused, 4 * n_views)
     if plans[True].split_k <= 0 or plans[False].split_k != 0:
         raise AssertionError(f"dense: split_k {plans[True].split_k} / "
                              f"{plans[False].split_k}")
@@ -925,11 +997,13 @@ def dense_preset(device):
         f"{plans[False].dense_e_cap}; split == unsplit in original face "
         f"order (bit-equal: {torch.equal(accs[True], accs[False])}), "
         f"overflow 0, repeated fusion bit-identical, launches {launches} "
-        f"(a zero pair budget runs no kernel), dense_prep {prep}"
+        f"(a zero pair budget runs no kernel), dense_prep {prep}, fusion "
+        f"{fused}"
     )
     return dict(vertices=vertices, faces=faces, probs=probs, plan=plans[True],
                 rot=rot, trans=trans, fl=fl, pp=pp, launches=launches,
-                prep_launches=prep["launches"])
+                prep_launches=prep["launches"],
+                fusion_launches=fused["launches"])
 
 
 def texel_renderer(name, device):
@@ -1055,6 +1129,9 @@ def texel_main_path(name, device, workdir):
     launches = read_launches()
     prep = read_prep()
     check_prep(name, prep, rasterized)
+    # sum, summax and mul by add, then two fuse_views_texels batches
+    fused = read_fusion()
+    check_fusion(name, fused, 5 * n_views)
 
     if not torch.equal(runs[0], runs[1]):
         raise AssertionError(f"{name}: repeated fusion is not bit-identical")
@@ -1108,8 +1185,8 @@ def texel_main_path(name, device, workdir):
         f"classes; dense budget {cap} (render), plan {plan.dense_e_cap} "
         f"split_k {plan.split_k}; prepare + render + render_many, "
         f"sum/summax/mul fused, colours, overflow 0, launches {launches} == "
-        f"{expect} views rasterized with pairs, dense_prep {prep}, every "
-        f"texel id < P, the "
+        f"{expect} views rasterized with pairs, dense_prep {prep}, fusion "
+        f"{fused}, every texel id < P, the "
         f"card's shader == the CPU's on every view"
         f"{', each == first_texel_index[face]' if name == 'texels01' else ''}"
         f", fuse_views_texels == per-view (bit-equal: "
@@ -1117,7 +1194,8 @@ def texel_main_path(name, device, workdir):
     )
     return dict(renderer=renderer, cams=cams, probs=probs, plan=plan,
                 cap=cap, batch=batch, launches=launches, faces=faces,
-                primitives=P, prep_launches=prep["launches"])
+                primitives=P, prep_launches=prep["launches"],
+                fusion_launches=fused["launches"])
 
 
 def texel_tile_check(device):
@@ -2369,6 +2447,163 @@ def dense_prep_row(ctx, device, card):
                 bound_ms=bound_ms, bound_by="bytes", bytes=nbytes)
 
 
+# fusion row: the benchmark's configurations whose scenes it renders
+# (benchmark/configs/<name>.json; "scannet-room" looks at the floor and
+# walls from inside the room, every pixel covered), and views a shape
+FUSION_SHAPES = ("scannet-eval", "cityscapes-demo", "scannet-room")
+FUSION_VIEWS = 8
+FUSION_KERNELS = ("fusion_keys_kernel", "fusion_rows_kernel",
+                  "fusion_carry_kernel")
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaMemset", "cuMemset",
+                "cudaMemcpy", "cuMemcpy")
+
+
+def fusion_traced(fn):
+    """(device ms of each fusion kernel (FUSION_KERNELS), of everything,
+    launch calls) of fn() under torch.profiler, or None where it saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.start()
+    except RuntimeError:
+        return None
+    # outside every try: a failure of fn itself ends the run
+    fn()
+    torch.cuda.synchronize()
+    try:
+        prof.stop()
+        kernels = device_times(prof)
+    except (RuntimeError, AttributeError):
+        return None
+    if not kernels:
+        return None
+    ours = [sum(ms for name, (ms, _) in kernels.items() if kernel in name)
+            for kernel in FUSION_KERNELS]
+    calls = sum(1 for e in prof.profiler.kineto_results.events()
+                if "CUDA" not in str(e.device_type())
+                and e.name().startswith(LAUNCH_CALLS))
+    return ours, sum(ms for ms, _ in kernels.values()), calls
+
+
+def fusion_row(device, card):
+    """Fusion of one view at the benchmark's shapes (FUSION_SHAPES: the
+    rendered ids of FUSION_VIEWS views on the configuration's ring around or
+    inside its cube, unjittered, random softmax probabilities made on the
+    card, the ids' (H, W) view strided as MeshAggregator.add passes it). On every view the kernels
+    (fusion_kernel.segment_sums) against the plain chain
+    (fusion._segment_sums_plain + _mix) on the same tensors: rows inside
+    one chunk of sorted positions bit-equal, the others within rtol 1e-5,
+    atol 1e-6; twice, bit-identical. Per view: ms with the sort from CUDA
+    graph replays and launched view by view, the kernels' own device ms
+    without the sort (torch.profiler), the plain chain's ms launched, the
+    launches of each, and the bound of the bytes (the probabilities and
+    ids read once, the (P, C) rows written once) at PEAK_BYTES_S. Prints a
+    line per shape; returns {shape: numbers}."""
+    import semantic_meshes_torch as smt
+    from semantic_meshes_torch import fusion, fusion_kernel
+
+    torch.cuda.empty_cache()
+    rows = {}
+    n = FUSION_VIEWS
+    for name in FUSION_SHAPES:
+        with open(os.path.join(HERE, "benchmark", "configs",
+                               f"{name}.json")) as fh:
+            cfg = json.load(fh)
+        width, height = cfg["width"], cfg["height"]
+        classes, agg, ring = cfg["classes"], cfg["aggregator"], cfg["ring"]
+        vertices, faces = smt.testing.make_cube(
+            subdivisions=cfg["subdivisions"], size=cfg["mesh_size"])
+        cams = smt.testing.make_ring_cameras(
+            num_views=n, width=width, height=height, radius=ring["radius"],
+            elevation=ring["elevation"],
+            focal=cfg["intrinsics"]["focal"][0], target=tuple(ring["target"]))
+        renderer = smt.render.triangles(
+            SimpleNamespace(vertices=vertices, faces=faces), device=device)
+        renderer.prepare(cams)
+        prims = [fusion.as_ids(renderer.render(cam)[0], device).t()
+                 for cam in cams]
+        probs = device_probs(n, height, width, classes, device)
+        P = len(faces)
+        kw = dict(num_primitives=P, aggregator=agg)
+
+        def kernels():
+            return [fusion_kernel.segment_sums(prims[k], probs[k], None, IEW,
+                                               **kw) for k in range(n)]
+
+        def plain():
+            return [fusion._mix(fusion._segment_sums_plain(
+                prims[k], probs[k], None, **kw), IEW) for k in range(n)]
+
+        fusion_kernel.launches = 0
+        got, again, want = kernels(), kernels(), plain()
+        if fusion_kernel.launches != 6 * n:
+            raise AssertionError(f"fusion at {name}: {fusion_kernel.launches}"
+                                 f" kernel launches for 2 x {n} views")
+        straddling, err = 0, 0.0
+        for k in range(n):
+            if not torch.equal(got[k].view(torch.int32),
+                               again[k].view(torch.int32)):
+                raise AssertionError(f"fusion at {name} view {k}: repeated "
+                                     "fusion is not bit-identical")
+            exact = smt.testing.inside_one_chunk(prims[k], P)
+            if not torch.equal(got[k][exact].view(torch.int32),
+                               want[k][exact].view(torch.int32)):
+                bad = int((got[k][exact] != want[k][exact]).any(1).sum())
+                raise AssertionError(f"fusion at {name} view {k}: {bad} rows "
+                                     "inside one chunk != the plain chain")
+            if not torch.allclose(got[k], want[k], rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"fusion at {name} view {k}: rows "
+                                     "across chunks past rtol 1e-5")
+            straddling += int((~exact).sum())
+            err = max(err, float((got[k] - want[k]).abs().max()))
+        del got, again, want
+        ms = graph_time_ms(kernels, reps=10) / n
+        launched_ms = cuda_time_ms(kernels, reps=10) / n
+        plain_ms = cuda_time_ms(plain, reps=3) / n
+        traced = fusion_traced(kernels)
+        traced_plain = fusion_traced(plain)
+        nbytes = width * height * (classes + 1) * 4 + P * classes * 4
+        bound_ms = nbytes / PEAK_BYTES_S * 1e3
+        row = dict(ms=ms, launched_ms=launched_ms, plain_ms=plain_ms,
+                   bound_ms=bound_ms, bound_by="bytes", bytes=nbytes,
+                   max_abs_err=err, rows_across_chunks=straddling / n)
+        if traced is None or traced_plain is None:
+            kernel_ms = "not measured (the profiler saw no device time)"
+        else:
+            row.update(kernel_ms=sum(traced[0]) / n,
+                       kernel_ms_each=dict(zip(
+                           FUSION_KERNELS, (ms / n for ms in traced[0]))),
+                       device_ms=traced[1] / n,
+                       launch_calls=traced[2] / n,
+                       plain_device_ms=traced_plain[1] / n,
+                       plain_launch_calls=traced_plain[2] / n)
+            kernel_ms = (
+                f"{row['kernel_ms']:.6f} ms the three kernels' device time "
+                "without the sort ("
+                + ", ".join(f"{k} {v:.6f}"
+                            for k, v in row["kernel_ms_each"].items())
+                + f"), {row['device_ms']:.6f} ms with it "
+                f"({row['launch_calls']:.2f} launch calls; the plain chain "
+                f"{row['plain_device_ms']:.6f} ms, "
+                f"{row['plain_launch_calls']:.2f} launch calls)")
+        phase(
+            f"phase 5 [{card}]: fusion at {name} ({n} views {width}x{height}"
+            f", {classes} classes, {agg}, {P} primitives), per view: "
+            f"{ms:.6f} ms (graph replays), {launched_ms:.6f} ms launched "
+            f"view by view, {kernel_ms}; the plain chain {plain_ms:.6f} ms "
+            f"launched; bytes bound {bound_ms:.6f} ms for {nbytes} bytes at "
+            f"{PEAK_BYTES_S / 1e12} TB/s; == plain chain on all {n} views "
+            f"({straddling / n:.1f} rows a view across chunks, max |err| "
+            f"{err:.3e}), repeated bit-identical"
+        )
+        rows[name] = row
+    return rows
+
+
 def device_busy(label, entry, fn, batch_ms, card, tag="phase 5"):
     """One traced batch: the device's busy time (sum of the kernels' own
     device times, from torch.profiler), its share of the untraced batch
@@ -2756,7 +2991,8 @@ def trace_annotations(trace_file):
 def scannet_eval(device, card):
     """Phase 6: eval_scannet.py's path around the renderer at `scannet`,
     the launch counters read around it. Every step is a PhaseTimers
-    phase. Returns raster_dense's launches."""
+    phase. Returns the launches of raster_dense and of the fusion
+    kernels."""
     import semantic_meshes_torch as smt
     from semantic_meshes_torch import native
     from semantic_meshes_torch.data2 import SensFile
@@ -2995,18 +3231,23 @@ def scannet_eval(device, card):
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     launches = read_launches()
+    fused = read_fusion()
     expect = renders if cap[0] > 0 else 0
     if launches["raster_dense"] != expect or launches["raster_tile"] != 0:
         raise AssertionError(f"scannet eval: launches {launches} for "
                              f"{expect} views rasterized with pairs")
+    if fused["views"] == 0:
+        raise AssertionError("scannet eval: no view fused by the fusion "
+                             "kernels")
     phase(f"phase 6 [{card}]: ScanNet eval path ok at scannet ({n_views} "
           f"views {width}x{height}, {T} triangles, {classes} classes, "
           f"dense budget {cap}): {EVAL_FRAMES}-frame .sens native == "
           "python, frame cameras within 1e-5, top-k fuse_views == "
           "per-view bit for bit, densify card == CPU, resume == straight, "
           f"confusion matrices card == CPU, trace holds {list(EVAL_PASS)}; "
-          f"launches {launches}; phase timers {json.dumps(timers.as_dict())}")
-    return launches["raster_dense"]
+          f"launches {launches}, fusion {fused}; phase timers "
+          f"{json.dumps(timers.as_dict())}")
+    return launches["raster_dense"], fused["launches"]
 
 
 # ---------------------------------------------------------------- phase 7
@@ -3208,7 +3449,8 @@ def world_of_one(device):
     1): every collective is over one rank and skipped, so the fuse equals
     fuse_views bit for bit; overflow 0; raster_dense once per view. Both
     batches timed in turns (host clock around work that ends in a
-    synchronize). Returns raster_dense's launches."""
+    synchronize). Returns the launches of raster_dense and of the fusion
+    kernels."""
     import torch.distributed as dist
 
     import semantic_meshes_torch as smt
@@ -3225,6 +3467,7 @@ def world_of_one(device):
         acc, ov = fuse(*args)
         torch.cuda.synchronize()
         launches = read_launches()
+        fused = read_fusion()
         log = list(log)  # one batch's collectives
         if not torch.equal(acc, ref) or int(ov) != int(ref_ov) or int(ov):
             raise AssertionError(
@@ -3234,6 +3477,7 @@ def world_of_one(device):
             raise AssertionError(f"world of one moved data: {log}")
         expect_launches("scannet world of one", launches, "raster_dense",
                         len(args[2]))
+        check_fusion("scannet world of one", fused, len(args[2]))
         fns = {"sharded": lambda: fuse(*args), "fuse_views": one_card}
         times = {name: [] for name in fns}  # both ran once above: warm
         for name in ("sharded", "fuse_views", "fuse_views", "sharded") * 3:
@@ -3247,10 +3491,11 @@ def world_of_one(device):
     med = {k: statistics.median(v) for k, v in times.items()}
     phase(f"phase 7: make_sharded_fuse in an NCCL world of one at scannet "
           f"(1, 1): == fuse_views bit for bit, overflow 0, "
-          f"{len(log)} collectives all skipped, launches {launches}; batch "
+          f"{len(log)} collectives all skipped, launches {launches}, fusion "
+          f"{fused}; batch "
           f"{med['sharded']:.6f} ms against fuse_views {med['fuse_views']:.6f}"
           f" ms in turns (ratio {med['sharded'] / med['fuse_views']:.6f})")
-    return launches["raster_dense"]
+    return launches["raster_dense"], fused["launches"]
 
 
 def sharded_cases(n):
@@ -3392,6 +3637,7 @@ def sharded_rank_cases(rank, n, port, bw):
         acc, ov = fuse(*args)
         torch.cuda.synchronize()
         launches = read_launches()
+        launches["fusion"] = read_fusion()["launches"]
         batch_log = list(log)
         acc2, ov2 = fuse(*args)
         if fuse_opts.get("shard_primitives"):
@@ -3521,7 +3767,7 @@ def multi_card(card, n):
         for r in range(n):
             with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
                 ranks.append(json.load(fh))
-    by_path = {"raster_tile": {}, "raster_dense": {}}
+    by_path = {"raster_tile": {}, "raster_dense": {}, "fusion": {}}
     for i, entry in enumerate(ranks[0]["cases"]):
         each = [rk["cases"][i] for rk in ranks]
         bad = [e for e in each if not (e["ok"] and e["bit_identical"])]
@@ -3533,6 +3779,9 @@ def multi_card(card, n):
             total = sum(e["launches"][kernel] for e in each)
             if total:
                 by_path[kernel][path] = total
+        if path not in by_path["fusion"]:
+            raise AssertionError(f"{path}: no rank fused a view by the "
+                                 "fusion kernels")
         _, views, width, height, _ = SCENES[entry["preset"]]
         ms = entry["ms"]
         mpix = {k: views * width * height / 1e6 / (v / 1e3)
@@ -3596,8 +3845,10 @@ def multi_gpu(device, card):
     dense_err = band_check("scannet", scannet_v, scannet_f, scannet_c,
                            device, range(2))
     face_block_check(device)
-    by_path = {"raster_tile": {}, "raster_dense": {
-        "scannet sharded, NCCL world of one (1, 1)": world_of_one(device)}}
+    one = "scannet sharded, NCCL world of one (1, 1)"
+    dense_launches, fusion_launches = world_of_one(device)
+    by_path = {"raster_tile": {}, "raster_dense": {one: dense_launches},
+               "fusion": {one: fusion_launches}}
     n = torch.cuda.device_count()
     if n >= 2:
         for kernel, paths in multi_card(card, n).items():
@@ -4702,27 +4953,33 @@ def cityscapes_demo(device, root, failures):
           f"card) in {time.monotonic() - t:.1f} s")
     base = ["--colmap", p.ws, "--input_ply", p.mesh, "--images", p.images,
             "--probs", p.probs, "--probs_dtype", "f16", "--device", "cuda"]
-    runs, by_path = {}, {}
+    runs, by_path, fused_by_path = {}, {}, {}
     for chunk, label in ((0, "chunked"), (1, "per view")):
         out = os.path.join(root, f"demo_chunk{chunk}.ply")
         args = demo.parse_args(base + ["--output_ply", out,
                                        "--chunk", str(chunk)])
         t = time.monotonic()
         result, launches = counted(demo.run, args)
+        fused = read_fusion()
         wall = time.monotonic() - t
         runs[chunk] = result
         by_path[f"cityscapes demo ({label})"] = launches["raster_dense"]
+        fused_by_path[f"cityscapes demo ({label})"] = fused["launches"]
         timers = {k: round(v["median_s"] * 1e3, 3) for k, v in
                   result["timers"].as_dict().items()}
         phase(f"phase 10: colorize_cityscapes_mesh --chunk {chunk} in "
               f"process: {wall:.1f} s ({wall / CITY['views']:.4f} s/image), "
-              f"launches {launches}, overflow {result['overflow']}, phase "
-              f"medians ms {timers}")
+              f"launches {launches}, fusion {fused}, overflow "
+              f"{result['overflow']}, phase medians ms {timers}")
         check(failures, result["overflow"] == 0,
               f"demo chunk {chunk}: overflow {result['overflow']}")
         check(failures, launches == {"raster_tile": 0,
                                      "raster_dense": CITY["views"]},
               f"demo chunk {chunk}: launches {launches}")
+        # the chunked run also fuses the all-zero views padding its tail
+        check(failures, fused["views"] >= CITY["views"],
+              f"demo chunk {chunk}: fusion {fused} for {CITY['views']} "
+              "views")
         check(failures, np.array_equal(ply_colors(out), result["colors"]),
               f"demo chunk {chunk}: PLY colours != the run's")
     check(failures, np.array_equal(runs[0]["colors"], runs[1]["colors"]),
@@ -4774,7 +5031,7 @@ def cityscapes_demo(device, root, failures):
         "bench_cityscapes", ["--keep", root, "--leg", leg, "--device", "cuda"],
         f"bench_cityscapes --leg {leg}", failures)
         for leg in ("probs", "unet")}
-    return by_path, err, bench_lines
+    return by_path, err, bench_lines, fused_by_path
 
 
 def mosaics(gen, n, height, width, block, device):
@@ -5098,7 +5355,7 @@ def scripts_phase(device, card):
     failures = []
     with tempfile.TemporaryDirectory() as workdir:
         city = os.path.join(workdir, "city")
-        dense, err, _ = cityscapes_demo(device, city, failures)
+        dense, err, _, fused = cityscapes_demo(device, city, failures)
         precompute_leg(device, workdir, failures)
         dense.update(annotations_leg(device, city, failures))
         shutil.rmtree(city)
@@ -5109,7 +5366,7 @@ def scripts_phase(device, card):
         raise AssertionError(f"phase 10: {len(failures)} gates failed: "
                              + "; ".join(failures))
     phase(f"phase 10 took {time.monotonic() - t10:.1f} s")
-    return {"raster_dense": dense, "raster_tile": tile}, err
+    return {"raster_dense": dense, "raster_tile": tile, "fusion": fused}, err
 
 
 # ------------------------------------------------------------------ phase 11
@@ -5668,11 +5925,16 @@ def main():
                      f"{label!r}")
         against[label] = load_against(path, i)
     builds = {"": _build, **{k: a.build for k, a in against.items()}}
+    def libraries(label):
+        # the fusion library is this checkout's (an --against may lack it)
+        return ("raster_tile", "raster_dense") + (() if label else
+                                                   ("fusion",))
+
     with ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda b: b.build("raster_tile", "raster_dense"),
-                      builds.values()))
+        list(pool.map(lambda kv: kv[1].build(*libraries(kv[0])),
+                      builds.items()))
     for label, build in builds.items():
-        for name in ("raster_tile", "raster_dense"):
+        for name in libraries(label):
             report = [ln.strip() for ln in build.build_log(name).splitlines()
                       if "ptxas info" in ln and ("Used" in ln
                                                  or "Compiling" in ln)]
@@ -5729,6 +5991,7 @@ def main():
     tile_row = tile_times("large", device, card, against)
     dense_row = dense_times(scannet, device, card, against)
     prep_row = dense_prep_row(scannet, device, card)
+    fusion_rows = fusion_row(device, card)
     dense_kernel_row("default forced dense",
                      [v[0] for v in dense_inputs("default", device,
                                                  "dense")[1]],
@@ -5742,11 +6005,15 @@ def main():
         "raster_dense": {"scannet": scannet["launches"],
                          "dense": dense_ctx["launches"]["raster_dense"]},
         "dense_prep": {"scannet": scannet["prep_launches"],
-                       "dense": dense_ctx["prep_launches"]}}
+                       "dense": dense_ctx["prep_launches"]},
+        "fusion": {"scannet": scannet["fusion_launches"],
+                   "large": large["fusion_launches"],
+                   "dense": dense_ctx["fusion_launches"]}}
     for name, ctx in texels.items():
         for kernel, n in ctx["launches"].items():
             by_path[kernel][name] = n
         by_path["dense_prep"][name] = ctx["prep_launches"]
+        by_path["fusion"][name] = ctx["fusion_launches"]
     by_path["raster_dense"]["scannet + SIMPLE_RADIAL"] = \
         scannet_lens["launches"]["raster_dense"]
     by_path["raster_tile"]["large + lenses"] = \
@@ -5794,7 +6061,8 @@ def main():
         against, card)
     del indoor, ctx, fv
 
-    by_path["raster_dense"]["scannet eval"] = scannet_eval(device, card)
+    by_path["raster_dense"]["scannet eval"], by_path["fusion"][
+        "scannet eval"] = scannet_eval(device, card)
     band_tile_err, band_dense_err, sharded = multi_gpu(device, card)
     tile_err, dense_err = max(tile_err, band_tile_err), max(dense_err,
                                                             band_dense_err)
@@ -5860,6 +6128,21 @@ def main():
         # the plain chain (dense_view_pair)
         "max_abs_err": 0.0,
         **prep_row,
+        "library_ms": None,
+    }, {
+        "name": "fusion",
+        "route": "cuda",
+        "source": "semantic_meshes_torch/csrc/fusion.cu",
+        # XLA's segment sum there (semantic_meshes/ops.py::segment_sum),
+        # no TPU kernel
+        "replaces": "semantic_meshes/ops.py",
+        # rows inside one chunk bit-equal to the plain chain, the others
+        # within rtol 1e-5 (fusion_row)
+        "max_abs_err": max(r["max_abs_err"] for r in fusion_rows.values()),
+        **fusion_rows["scannet-eval"],
+        "by_shape": fusion_rows,
+        "launches": by_path["fusion"]["scannet"],
+        "launches_by_path": by_path["fusion"],
         "library_ms": None,
     }]
     raise_prep_faults()

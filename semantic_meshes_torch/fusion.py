@@ -3,8 +3,10 @@
 Counterpart of `semantic_meshes/fusion.py` (reference:
 include/semantic_meshes/fusion/Mesh.h:45-133,
 python/semantic_meshes/src/Fusion.cu:46-92). Fusion runs on the device
-that holds the accumulator; each `add` is one deterministic segment sum
-(ops.segment_sum), so render -> fuse never leaves device memory.
+that holds the accumulator; each `add` is one deterministic segment sum,
+by the hand-written kernels of fusion_kernel on the card and by a chain of
+PyTorch ops (ops.segment_sum) on the CPU, so render -> fuse never leaves
+device memory.
 
 Aggregator semantics (all per Fusion.cu):
 - "sum":    acc += probs * w;                get: L1-normalize, nan/inf->0
@@ -31,7 +33,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import ops
+from . import fusion_kernel, ops
 from .data import resolve_device
 from .profiling import span
 
@@ -125,52 +127,76 @@ def _pixel_values(probs_flat, base_w, aggregator):
     raise ValueError(f"unknown aggregator {aggregator!r}")
 
 
-def _accumulate_view(prim, probs, weights, images_equal_weight, *,
-                     num_primitives, aggregator, group=None):
-    """Fusion contribution (P, C) of one view as ONE segment sum.
-
-    Every aggregator's accumulation is linear in the pixel weight, and the
-    weight mix is constant within a primitive, so
+def _segment_sums_plain(prim, probs, weights, *, num_primitives,
+                        aggregator):
+    """The segment sums of one view as a chain of PyTorch ops, the CPU
+    implementation and the card kernels' oracle (fusion_kernel): (P, C + 1),
+    per primitive p
       S[p]     = sum over p's pixels of (pixel_w * value)
       count[p] = all pixels whose primitive is p (don't-care included)
-      delta[p] = (iew / count[p] + (1 - iew)) * S[p]
-    needs one segment sum over (values | count column).
-    prim: signed integer ids (any shape); probs: prim.shape + (C,).
+    in the last column, as ONE segment sum over (values | count column)."""
+    P = num_primitives
+    prim_flat = prim.reshape(-1)
+    npix = prim_flat.shape[0]
+    C = probs.shape[-1]
+    in_range = (prim_flat >= 0) & (prim_flat < P)
+    idx = torch.where(in_range, prim_flat, P)
+
+    probs_flat = probs.reshape(npix, C)
+    not_dont_care = probs_flat.sum(dim=-1) > DONT_CARE_THRESHOLD
+    pixel_w = (
+        torch.ones(npix, dtype=torch.float32, device=probs.device)
+        if weights is None else weights.reshape(npix)
+    )
+    base_w = torch.where(in_range & not_dont_care, pixel_w,
+                         torch.zeros_like(pixel_w))
+    values = _pixel_values(probs_flat, base_w, aggregator)
+    # trailing column: pixels_per_face over ALL in-range pixels
+    # (Mesh.h:90-93)
+    data = torch.cat([values, in_range.to(torch.float32)[:, None]], dim=1)
+    return ops.segment_sum(data, idx, P)
+
+
+def _mix(seg, images_equal_weight):
+    """(P, C) contributions from the (P, C + 1) sums and counts:
+    delta[p] = (iew / count[p] + (1 - iew)) * S[p]."""
+    C = seg.shape[1] - 1
+    counts = torch.clamp(seg[:, C], min=1.0)
+    # a true division (python's `iew / tensor` is reciprocal-then-multiply)
+    mix = torch.div(torch.full_like(counts, images_equal_weight),
+                    counts) + (1.0 - images_equal_weight)
+    return mix[:, None] * seg[:, :C]
+
+
+def _accumulate_view(prim, probs, weights, images_equal_weight, *,
+                     num_primitives, aggregator, group=None):
+    """Fusion contribution (P, C) of one view.
+
+    Every aggregator's accumulation is linear in the pixel weight, and the
+    weight mix is constant within a primitive, so the view needs one
+    segment sum of the weighted values and the pixel counts, then the mix
+    (_segment_sums_plain, _mix). CUDA tensors go through the hand-written
+    kernels (fusion_kernel), CPU tensors through the plain chain.
+    prim: signed integer ids (H, W); probs: prim.shape + (C,).
     group: None, or the distributed.MeshAxis the image's rows are split
     over: S and the counts are summed over its ranks before the mix, since
     the counts need the whole image (the JAX package's psum over
     `pixels`).
     """
     with span("smt.fusion"):
-        P = num_primitives
-        prim_flat = prim.reshape(-1)
-        npix = prim_flat.shape[0]
-        C = probs.shape[-1]
-        in_range = (prim_flat >= 0) & (prim_flat < P)
-        idx = torch.where(in_range, prim_flat, P)
-
-        probs_flat = probs.reshape(npix, C)
-        not_dont_care = probs_flat.sum(dim=-1) > DONT_CARE_THRESHOLD
-        pixel_w = (
-            torch.ones(npix, dtype=torch.float32, device=probs.device)
-            if weights is None else weights.reshape(npix)
-        )
-        base_w = torch.where(in_range & not_dont_care, pixel_w,
-                             torch.zeros_like(pixel_w))
-        values = _pixel_values(probs_flat, base_w, aggregator)
-        # trailing column: pixels_per_face over ALL in-range pixels
-        # (Mesh.h:90-93)
-        data = torch.cat([values, in_range.to(torch.float32)[:, None]],
-                         dim=1)
-        seg = ops.segment_sum(data, idx, P)
+        kw = dict(num_primitives=num_primitives, aggregator=aggregator)
+        if not probs.is_cuda:
+            seg = _segment_sums_plain(prim, probs, weights, **kw)
+        elif group is None:
+            return fusion_kernel.segment_sums(prim, probs, weights,
+                                              images_equal_weight, **kw)
+        else:
+            seg = fusion_kernel.segment_sums(prim, probs, weights,
+                                             images_equal_weight, raw=True,
+                                             **kw)
         if group is not None:
             seg = group.all_reduce(seg)
-        counts = torch.clamp(seg[:, C], min=1.0)
-        # a true division (python's `iew / tensor` is
-        # reciprocal-then-multiply)
-        mix = torch.div(torch.full_like(counts, images_equal_weight),
-                        counts) + (1.0 - images_equal_weight)
-        return mix[:, None] * seg[:, :C]
+        return _mix(seg, images_equal_weight)
 
 
 def _get(acc, *, aggregator):

@@ -7,7 +7,8 @@ only, so both packages build the very same scene from the same
 arguments): a subdivided cube viewed by pinhole cameras on a ring, fused
 with random class probabilities. The port's own
 `dense_resolve_scene` and `tile_resolve_scene` build inputs of the two
-z-resolve kernels directly in screen space.
+z-resolve kernels directly in screen space; `inside_one_chunk` says which
+primitives the fusion kernels must give bit for bit.
 """
 
 from __future__ import annotations
@@ -511,3 +512,27 @@ def tile_resolve_scene(name, device="cpu"):
     table = tile_kernel.candidate_table(setup, tri_ids)
     return (table.to(device), cand.to(device), counts.to(device), y_offset,
             tiles._cdiv(width, tiles.TILE_W), height, width)
+
+
+def inside_one_chunk(prim, num_primitives):
+    """(P,) bool: every pixel of the primitive lies inside one chunk of the
+    sorted positions of fusion_kernel.segment_sums, so that it adds them in
+    the plain chain's order and gives its bits; a primitive without pixels
+    counts as inside. prim: integer ids on the card (the chunk comes from
+    the card's fusion library)."""
+    import torch
+
+    from . import fusion_kernel
+
+    chunk = fusion_kernel._kernels()[0]
+    flat = prim.reshape(-1).to(torch.int64)
+    key = torch.where((flat >= 0) & (flat < num_primitives), flat,
+                      num_primitives)
+    pos = torch.sort(key, stable=True).values
+    at = torch.arange(pos.numel(), device=prim.device)
+    first = torch.full((num_primitives + 1,), -1, dtype=torch.int64,
+                       device=prim.device)
+    last = first.clone()
+    last.scatter_reduce_(0, pos, at, "amax")
+    first.scatter_reduce_(0, pos, at, "amin", include_self=False)
+    return first[:num_primitives] // chunk == last[:num_primitives] // chunk

@@ -13,7 +13,7 @@ import torch
 from semantic_meshes import fusion as jfusion
 from semantic_meshes import ops as jops
 from semantic_meshes import testing as jtesting
-from semantic_meshes_torch import convert, fusion, ops
+from semantic_meshes_torch import convert, fusion, fusion_kernel, ops
 
 RTOL, ATOL = 1e-5, 1e-6
 P, C, W, H = 40, 5, 24, 16
@@ -107,6 +107,45 @@ def test_add_many_equals_sequential_adds():
                   np.stack([v[1] for v in views]),
                   np.stack([v[2] for v in views]))
     assert torch.equal(many.state, seq.state)
+
+
+def _chain_before_the_card_kernels(prim, probs, weights, iew, aggregator):
+    """One view's fusion as the port computed it on every device before
+    fusion got its card kernels, written out to pin its bits."""
+    prim_flat = prim.reshape(-1)
+    npix = prim_flat.shape[0]
+    in_range = (prim_flat >= 0) & (prim_flat < P)
+    idx = torch.where(in_range, prim_flat, P)
+    probs_flat = probs.reshape(npix, C)
+    not_dont_care = probs_flat.sum(dim=-1) > 0.5
+    pixel_w = (torch.ones(npix) if weights is None
+               else weights.reshape(npix))
+    base_w = torch.where(in_range & not_dont_care, pixel_w,
+                         torch.zeros_like(pixel_w))
+    values = fusion._pixel_values(probs_flat, base_w, aggregator)
+    data = torch.cat([values, in_range.to(torch.float32)[:, None]], dim=1)
+    seg = ops.segment_sum(data, idx, P)
+    counts = torch.clamp(seg[:, C], min=1.0)
+    mix = torch.div(torch.full_like(counts, iew), counts) + (1.0 - iew)
+    return mix[:, None] * seg[:, :C]
+
+
+@pytest.mark.parametrize("aggregator", ["sum", "summax", "mul"])
+@pytest.mark.parametrize("weighted", [False, True])
+def test_cpu_fusion_keeps_the_plain_chain(aggregator, weighted):
+    """On the CPU, _accumulate_view is the plain chain, bit for bit, and
+    launches no kernel."""
+    ids, probs, weights = _view(11)
+    prim = fusion.as_ids(ids, "cpu").t()
+    pr = torch.from_numpy(probs).transpose(0, 1)
+    w = torch.from_numpy(weights).t() if weighted else None
+    launches, views = fusion_kernel.launches, fusion_kernel.views
+    got = fusion._accumulate_view(prim, pr, w, 0.3, num_primitives=P,
+                                  aggregator=aggregator)
+    want = _chain_before_the_card_kernels(prim, pr, w, 0.3, aggregator)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert (fusion_kernel.launches, fusion_kernel.views) == (launches, views)
+    assert fusion_kernel.launches == 0
 
 
 def test_state_merge_reset_and_convert():
