@@ -299,6 +299,7 @@ repository beside it, the script exits non-zero and prints no result.
 """
 
 import argparse
+import dataclasses
 import importlib
 import importlib.util
 import json
@@ -433,7 +434,8 @@ def view_inputs(fv, cam, device, clip_near=False):
 
 def dense_budget(vertices, faces, cams, device, backend=None,
                  clip_near=False):
-    """The dense budget tuple the renderer probes for this camera set."""
+    """The dense budget (a DenseBudget) the renderer probes for this
+    camera set."""
     import semantic_meshes_torch as smt
     from types import SimpleNamespace
 
@@ -453,7 +455,7 @@ def dense_view_inputs(fv, cam, cap, device, clip_near=False):
     return rast.dense.resolve_inputs(None, None, *cam_args(cam),
                                      face_vertices=fv, clip_near=clip_near,
                                      device=device, **cam_kw(cam),
-                                     **rast.dense_kwargs(cap))
+                                     **rast.dense.DenseBudget.of(cap).kwargs())
 
 
 def dense_view_pair(where, k, fv, cam, cap, device, clip_near=False,
@@ -473,7 +475,8 @@ def dense_view_pair(where, k, fv, cam, cap, device, clip_near=False,
 
     kw = dict(face_vertices=fv, clip_near=clip_near, device=device,
               height=cam.resolution[1] if height is None else height,
-              width=cam.resolution[0], **rast.dense_kwargs(cap))
+              width=cam.resolution[0],
+              **rast.dense.DenseBudget.of(cap).kwargs())
     launches = dense_prep.launches
     args, key, ov = dense.resolve_inputs(None, None, *cam_args(cam),
                                          y_offset, **kw)
@@ -802,7 +805,10 @@ def check_prep(label, prep, budgets):
     dense budget in `budgets` (None: the default pair budget), 3 launches
     a view with a pair budget and 2 one without."""
     def pairs(c):
-        return 1 if c is None else int(c if isinstance(c, int) else c[0])
+        from semantic_meshes_torch.rasterize import dense
+
+        p = dense.DenseBudget.of(c).pairs
+        return 1 if p is None else p
 
     want = {"launches": sum(3 if pairs(c) > 0 else 2 for c in budgets),
             "views": len(budgets)}
@@ -933,16 +939,15 @@ def main_path(name, device, workdir):
     kernel = "raster_dense" if dense else "raster_tile"
     other = "raster_tile" if dense else "raster_dense"
     expect = sum(1 for c in rasterized
-                 if not dense or (c is not None and c[0] > 0))
+                 if not dense or (c is not None and c.pairs > 0))
     if launches[kernel] != expect or launches[other] != 0:
         raise AssertionError(f"{name}: launches {launches} for {expect} "
                              f"views rasterized with pairs")
     if not torch.allclose(acc, fused_sum, rtol=1e-6, atol=0.0):
         err = float((acc - fused_sum).abs().max())
         raise AssertionError(f"{name}: planned != per-view (max |err| {err})")
-    extra = (f"dense budget {cap} (render), plan {plan.dense_e_cap} split_k "
-             f"{plan.split_k}; prepare + render + render_many, "
-             if dense else "")
+    extra = (f"dense budget {cap} (render), plan {plan.dense_e_cap}; "
+             f"prepare + render + render_many, " if dense else "")
     phase(
         f"phase 4: main path at {name} ok: {n_views} views {width}x{height}, "
         f"{len(faces)} triangles, {classes} classes, {extra}sum/summax/mul "
@@ -982,9 +987,9 @@ def dense_preset(device):
                + [plans[False].dense_e_cap] * (2 * n_views))
     fused = read_fusion()
     check_fusion("dense", fused, 4 * n_views)
-    if plans[True].split_k <= 0 or plans[False].split_k != 0:
-        raise AssertionError(f"dense: split_k {plans[True].split_k} / "
-                             f"{plans[False].split_k}")
+    split_k = [plans[s].dense_e_cap.split_k for s in (True, False)]
+    if split_k[0] <= 0 or split_k[1] != 0:
+        raise AssertionError(f"dense: split_k {split_k[0]} / {split_k[1]}")
     if not torch.allclose(accs[True], accs[False], rtol=1e-6, atol=0.0):
         err = float((accs[True] - accs[False]).abs().max())
         raise AssertionError(f"dense: split != unsplit (max |err| {err})")
@@ -993,7 +998,7 @@ def dense_preset(device):
     phase(
         f"phase 4: dense preset ok: {n_views} views {width}x{height}, "
         f"{len(faces)} triangles; split plan {plans[True].dense_e_cap} "
-        f"(split_k {plans[True].split_k} of {len(faces)}), unsplit plan "
+        f"(split_k {split_k[0]} of {len(faces)}), unsplit plan "
         f"{plans[False].dense_e_cap}; split == unsplit in original face "
         f"order (bit-equal: {torch.equal(accs[True], accs[False])}), "
         f"overflow 0, repeated fusion bit-identical, launches {launches} "
@@ -1135,7 +1140,7 @@ def texel_main_path(name, device, workdir):
 
     if not torch.equal(runs[0], runs[1]):
         raise AssertionError(f"{name}: repeated fusion is not bit-identical")
-    expect = sum(1 for c in rasterized if c is not None and c[0] > 0)
+    expect = sum(1 for c in rasterized if c is not None and c.pairs > 0)
     if launches["raster_dense"] != expect or launches["raster_tile"] != 0:
         raise AssertionError(f"{name}: launches {launches} for {expect} "
                              "views rasterized with pairs")
@@ -1182,8 +1187,8 @@ def texel_main_path(name, device, workdir):
         f"{height}, {len(faces)} triangles, tpp {TPP[name]}, P {P} texels "
         f"(resolution {int(r.min())}-{int(r.max())}, "
         f"{int((r == 0).sum())} triangles without texels), {classes} "
-        f"classes; dense budget {cap} (render), plan {plan.dense_e_cap} "
-        f"split_k {plan.split_k}; prepare + render + render_many, "
+        f"classes; dense budget {cap} (render), plan {plan.dense_e_cap}; "
+        f"prepare + render + render_many, "
         f"sum/summax/mul fused, colours, overflow 0, launches {launches} == "
         f"{expect} views rasterized with pairs, dense_prep {prep}, fusion "
         f"{fused}, every texel id < P, the "
@@ -1309,7 +1314,7 @@ def distorted_scannet(device, workdir):
                              f"grids (overflow {int(ov)})")
     caps = [cap] * (2 * n_views) + [plan.dense_e_cap] * (3 * n_views)
     expect_launches("scannet radial", launches, "raster_dense",
-                    sum(1 for c in caps if c[0] > 0))
+                    sum(1 for c in caps if c.pairs > 0))
     bit = same_state("scannet radial", acc, fused_sum)
     phase(
         f"phase 4: scannet + SIMPLE_RADIAL k1 {RADIAL_SCANNET[0]} ok: "
@@ -1651,9 +1656,11 @@ def clipped_vs_plain(device):
     project up to ~1e4 x the focal, so edge constants reach ~1e13): both
     kernels (raster_dense forced) on the straddling scene, raster_tile on
     every view of `large` indoor, raster_dense on every view of `scannet`
-    indoor at the budget its clipped renderer probes (twice per view,
-    bit-identical). Returns the largest |depth difference|."""
-    from semantic_meshes_torch.rasterize import dense_kernel, tile_kernel
+    indoor at the budget its clipped renderer probes, with the JAX
+    package's fixed n_global (twice per view, bit-identical). Returns the
+    largest |depth difference|."""
+    from semantic_meshes_torch.rasterize import dense, dense_kernel, \
+        tile_kernel
 
     max_err = 0.0
     vertices, faces, cam = straddle_scene()
@@ -1695,7 +1702,10 @@ def clipped_vs_plain(device):
 
     vertices, faces, cams = indoor_scene("scannet")
     fv = face_vertices(vertices, faces, device)
-    cap = dense_budget(vertices, faces, cams, device, clip_near=True)
+    # the clipped renderer's budget at the JAX package's fixed global cap
+    cap = dataclasses.replace(
+        dense_budget(vertices, faces, cams, device, clip_near=True),
+        n_global=dense.N_GLOBAL)
     drops = global_drops(vertices, faces, cams, device)
     shapes = []
     for k, cam in enumerate(cams):
@@ -1775,13 +1785,17 @@ def indoor_main_path(name, device, workdir):
     plan = smt.distributed.plan_fuse(vertices, faces, rot, trans, fl, pp,
                                      height=height, width=width,
                                      clip_near=True, device=device)
-    if plan.split_k != 0 or plan.remap is not None:
-        raise AssertionError(f"{label}: plan split_k {plan.split_k}")
+    if (plan.dense_e_cap is not None and plan.dense_e_cap.split_k != 0
+            or plan.remap is not None):
+        raise AssertionError(f"{label}: plan {plan.dense_e_cap} split")
     acc = planned_twice(label, plan, vertices, cams, probs, classes, device,
                         clip_near=True)
+    # default budgets at the plan's global cap
+    default = smt.rasterize.dense.DenseBudget(
+        n_global=plan.dense_e_cap.n_global) if dense else None
     unplanned, ov = smt.distributed.fuse_views(vertices, faces, rot, trans,
                                                fl, pp, probs, IEW,
-                                               n_global=plan.n_global, **kw)
+                                               dense_e_cap=default, **kw)
     split, ov_s = smt.distributed.fuse_views_split(vertices, faces, rot,
                                                    trans, fl, pp, probs, IEW,
                                                    **kw)
@@ -1796,20 +1810,18 @@ def indoor_main_path(name, device, workdir):
             + [None] * n_views + [plan.dense_e_cap] * n_views)
     kernel = "raster_dense" if dense else "raster_tile"
     expect_launches(label, launches, kernel, sum(
-        1 for c in caps if not dense or c is None or c[0] > 0))
+        1 for c in caps if not dense or c is None or c.pairs > 0))
     prep = read_prep()
     check_prep(label, prep, caps if dense else [])
     bit = same_state(label, acc, fused_sum)
     if not torch.equal(unplanned, acc):
         raise AssertionError(f"{label}: fuse_views != fuse_views_planned")
-    extra = (f"dense budget {cap} n_global "
-             f"{renderer.dense_cap_policy.n_global((height, width))} "
-             f"(render), plan {plan.dense_e_cap} n_global {plan.n_global}"
+    extra = (f"dense budget {cap} (render), plan {plan.dense_e_cap}"
              if dense else "tile rasterizer")
     phase(
         f"phase 4: {label} ok: {n_views} views {width}x{height} inside a "
         f"{ROOM_SIZE} m room, {len(faces)} triangles, {classes} classes, "
-        f"{extra}, split_k {plan.split_k}; prepare + render + render_many, "
+        f"{extra}; prepare + render + render_many, "
         f"coverage per view {coverage}, sum/summax/mul fused, PLY saved and "
         f"reloaded, overflow 0 (a direct call at N_GLOBAL drops {total}: "
         f"{drops} a view), launches {launches}, dense_prep {prep}, planned "
@@ -1898,8 +1910,7 @@ def indoor_texels01(device):
             renderer.vertices, plan.faces, renderer.resolutions,
             renderer.first_texel_index, rot, trans, fl, pp, probs, IEW,
             num_primitives=P, aggregator="sum", height=height, width=width,
-            clip_near=True, dense_e_cap=plan.dense_e_cap,
-            n_global=plan.n_global, device=device)
+            clip_near=True, dense_e_cap=plan.dense_e_cap, device=device)
 
     runs = []
     for _ in range(2):
@@ -1915,7 +1926,7 @@ def indoor_texels01(device):
                              "bit-identical")
     caps = [cap] * (2 * n_views) + [plan.dense_e_cap] * (2 * n_views)
     expect_launches(label, launches, "raster_dense",
-                    sum(1 for c in caps if c[0] > 0))
+                    sum(1 for c in caps if c.pairs > 0))
     bit = same_state(label, runs[0], fused_sum)
     ids = many.view(torch.int32)
     if int(ids.max()) >= P:
@@ -1990,7 +2001,7 @@ def indoor_scannet_lens(device):
         raise AssertionError(f"{label}: overflow {renderer.overflow_total()}"
                              ", expected 0")
     expect_launches(label, launches, "raster_dense",
-                    2 * len(cams) if cap[0] > 0 else 0)
+                    2 * len(cams) if cap.pairs > 0 else 0)
     coverage = [float((i.view(torch.int32) >= 0).double().mean())
                 for i in many]
     phase(f"phase 4: {label} ok: {len(cams)} views, dense budget {cap} "
@@ -2243,7 +2254,7 @@ def dense_times(ctx, device, card, against):
                                   ctx["cap"])
     T = len(faces)
     fv = face_vertices(vertices, faces, device)
-    kw = rast.dense_kwargs(cap)
+    kw = dense.DenseBudget.of(cap).kwargs()
     e_cap = dense._cdiv(max(kw["e_cap_rows"], dense.CHUNK),
                         dense.CHUNK) * dense.CHUNK
     micro_max = kw["micro_max"]
@@ -2413,7 +2424,7 @@ def dense_prep_row(ctx, device, card):
                                   ctx["cap"])
     fv = face_vertices(vertices, faces, device)
     n = len(cams)
-    kw = rast.dense_kwargs(cap)
+    kw = dense.DenseBudget.of(cap).kwargs()
 
     def prepare():
         return [dense_view_inputs(fv, cam, cap, device) for cam in cams]
@@ -2693,6 +2704,9 @@ def batch_throughput(name, ctx, device, card, label=None):
     phase(f"phase 5 [{card}]: {label}, {entry} batch {batch_ms:.6f} ms for "
           f"{n_views} views")
     device_busy(label, entry, fused_batch, batch_ms, card)
+    plan = ctx.get("plan")
+    budget = None if plan is None or plan.dense_e_cap is None else \
+        dataclasses.asdict(plan.dense_e_cap)
     print(json.dumps({
         "metric": "rasterize_fuse_throughput", "value": mpix_s,
         "unit": "MPix/s", "card": card,
@@ -2700,8 +2714,7 @@ def batch_throughput(name, ctx, device, card, label=None):
                    "resolution": [width, height], "triangles": T,
                    "primitives": P, "classes": classes,
                    "batch_ms": batch_ms, "entry": entry,
-                   "dense_e_cap": getattr(ctx.get("plan"), "dense_e_cap",
-                                          None)},
+                   "dense_e_cap": budget},
     }), flush=True)
     return batch_ms
 
@@ -3232,7 +3245,7 @@ def scannet_eval(device, card):
         shutil.rmtree(workdir, ignore_errors=True)
     launches = read_launches()
     fused = read_fusion()
-    expect = renders if cap[0] > 0 else 0
+    expect = renders if cap.pairs > 0 else 0
     if launches["raster_dense"] != expect or launches["raster_tile"] != 0:
         raise AssertionError(f"scannet eval: launches {launches} for "
                              f"{expect} views rasterized with pairs")
@@ -3308,7 +3321,7 @@ def band_check(label, vertices, faces, cams, device, plain_views):
                 elif use_dense:
                     args, _, ov = dense.resolve_inputs(
                         None, None, *cam_args(cam), row0, **kw,
-                        **rast.dense_kwargs(cap))
+                        **dense.DenseBudget.of(cap).kwargs())
                 if use_dense:
                     if args is None:
                         raise AssertionError(f"{label}: zero pair budget")

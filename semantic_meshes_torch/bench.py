@@ -266,10 +266,9 @@ def measure_preset(preset, repeats, device="cuda"):
         allow_split=(texel_params is None
                      and os.environ.get("SM_MICRO_SPLIT", "1") == "1"),
         device=device)
-    if plan.dense_e_cap is not None:
-        print(f"# plan: dense_e_cap={plan.dense_e_cap} "
-              f"split_k={plan.split_k} micro_max={plan.micro_max}",
-              file=sys.stderr, flush=True)
+    budget = plan.dense_e_cap
+    if budget is not None:
+        print(f"# plan: dense_e_cap={budget}", file=sys.stderr, flush=True)
     vertices = torch.as_tensor(vertices, dtype=torch.float32, device=device)
     kw = dict(num_primitives=num_primitives, aggregator="sum",
               height=height, width=width, device=device)
@@ -278,7 +277,7 @@ def measure_preset(preset, repeats, device="cuda"):
         if texel_params is not None:
             return distributed.fuse_views_texels(
                 vertices, plan.faces, *texel_params, *cam_arrays, probs, IEW,
-                dense_e_cap=plan.dense_e_cap, n_global=plan.n_global, **kw)
+                dense_e_cap=budget, **kw)
         return distributed.fuse_views_planned(plan, vertices, *cam_arrays,
                                               probs, IEW, **kw)
 
@@ -310,8 +309,8 @@ def measure_preset(preset, repeats, device="cuda"):
         "seconds_per_batch": dt,
         "batch_ms": batch_ms,
         "first_batch_seconds": first_batch_s,
-        "split_k": int(plan.split_k),
-        "micro_max": plan.micro_max,
+        "split_k": 0 if budget is None else budget.split_k,
+        "micro_max": None if budget is None else budget.micro_max,
         # dropped candidate pairs and micro rows of the last batch;
         # nonzero means less than the full mesh was rendered: never
         # accept a throughput with overflow > 0

@@ -27,6 +27,7 @@ Layout: probs here are (N, H, W, C), not the public API's (W, H).
 from __future__ import annotations
 
 import os
+from dataclasses import replace
 from typing import NamedTuple
 
 import numpy as np
@@ -56,15 +57,15 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
                           images_equal_weight, *, num_primitives, aggregator,
                           height, width, max_tris_per_tile=256,
                           prim_transform=None, face_vertices=None,
-                          clip_near=False, dense_e_cap=None, n_global=None,
-                          tri_ids=None, backend=None, resample_grid=None,
+                          clip_near=False, dense_e_cap=None, tri_ids=None,
+                          backend=None, resample_grid=None,
                           group=None, y_offset=None, device="cuda"):
     """One fused render+aggregate step on one view.
 
     camera_arrays: (rotation, translation, focal_lengths, principal_point).
-    probs: (H, W, C); weights: optional (H, W). dense_e_cap, n_global:
-    the dense rasterizer's probed budget and global bucket's cap
-    (FusePlan); tri_ids: (T,) ids to emit per face row (a split plan's
+    probs: (H, W, C); weights: optional (H, W). dense_e_cap: the dense
+    rasterizer's budget (a FusePlan's, or any form rasterize.rasterize
+    takes); tri_ids: (T,) ids to emit per face row (a split plan's
     original face ids). prim_transform: optional
     `fn(tri_index, depth, camera_arrays) -> (H, W) primitive ids` (the
     texel shader, or a sharded fuse's face-block merge); without it the
@@ -88,8 +89,8 @@ def render_and_accumulate(vertices, faces, camera_arrays, probs, weights,
         y_offset=0.0 if y_offset is None else y_offset,
         height=height, width=width, max_tris_per_tile=max_tris_per_tile,
         face_vertices=face_vertices, clip_near=clip_near,
-        dense_e_cap=dense_e_cap, n_global=n_global, tri_ids=tri_ids,
-        backend=backend, device=device,
+        dense_e_cap=dense_e_cap, tri_ids=tri_ids, backend=backend,
+        device=device,
     )
     if prim_transform is not None:
         tri = prim_transform(tri, depth, camera_arrays)
@@ -114,23 +115,19 @@ def lens_shared(focal_lengths, principal_points, distortions):
     compare of the inputs' values; plan_fuse stores it on the FusePlan."""
     if distortions is None:
         return False
-    fl, pp, d = (_host(a) for a in (focal_lengths, principal_points,
-                                    distortions))
+    fl, pp, d = (render._host(a) for a in (focal_lengths, principal_points,
+                                           distortions))
     return bool((fl == fl[:1]).all() and (pp == pp[:1]).all()
                 and (d == d[:1]).all())
-
-
-def _host(a):
-    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
 
 
 def fuse_views(vertices, faces, rotations, translations, focal_lengths,
                principal_points, probs, images_equal_weight, weights=None,
                distortions=None, prim_remap=None, *, num_primitives,
                aggregator, height, width, max_tris_per_tile=256,
-               clip_near=False, dense_e_cap=None, n_global=None,
-               backend=None, predict_fn=None, prim_transform=None,
-               shared_lens=False, device="cuda"):
+               clip_near=False, dense_e_cap=None, backend=None,
+               predict_fn=None, prim_transform=None, shared_lens=False,
+               device="cuda"):
     """Render and fuse N views into one accumulator.
 
     rotations (N,3,3), translations (N,3), focal_lengths/principal_points
@@ -152,9 +149,8 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
     a split plan returns its accumulator in original face order (the dense
     rasterizer writes the ids into its tables, see rasterize.rasterize).
     clip_near: render through the near-plane clipper (a clipped plan has
-    no prim_remap). dense_e_cap / n_global / backend: the dense budget,
-    the global bucket's cap (None: dense.N_GLOBAL) and the backend
-    (plan_fuse).
+    no prim_remap). dense_e_cap / backend: the dense budget and the
+    backend (plan_fuse).
     predict_fn: optional per-view hook `(H, W, ...) -> (H, W, C)` probs;
     `probs` then holds its inputs: a stack, or a tuple or list of stacks
     whose view i is the tuple of each stack's slice i (the JAX scan's
@@ -203,8 +199,8 @@ def fuse_views(vertices, faces, rotations, translations, focal_lengths,
                 max_tris_per_tile=max_tris_per_tile,
                 prim_transform=prim_transform, face_vertices=face_vertices,
                 clip_near=clip_near, dense_e_cap=dense_e_cap,
-                n_global=n_global, tri_ids=prim_remap, backend=backend,
-                resample_grid=grid, device=device,
+                tri_ids=prim_remap, backend=backend, resample_grid=grid,
+                device=device,
             )
             acc = delta if acc is None else acc + delta
             overflow = overflow + ov
@@ -218,21 +214,19 @@ def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
                       principal_points, probs, images_equal_weight,
                       weights=None, distortions=None, *, num_primitives,
                       aggregator, height, width, max_tris_per_tile=256,
-                      clip_near=False, dense_e_cap=None, n_global=None,
-                      backend=None, predict_fn=None, shared_lens=False,
-                      device="cuda"):
+                      clip_near=False, dense_e_cap=None, backend=None,
+                      predict_fn=None, shared_lens=False, device="cuda"):
     """Batched texel-mode fusion: fuse_views with the texel shader between
     the rasterizer and the fusion, so the primitives are a TexelsRenderer's
     texels (pass its reordered `faces`, `resolutions`, `first_texel_index`
     and getPrimitivesNum()). Returns (accumulator (P, C), overflow int32
     tensor), like fuse_views; no step syncs with the host.
 
-    dense_e_cap / n_global / backend: the dense budget and global
-    bucket's cap of `plan_fuse(..., allow_split=False)` (texel tables are
-    per face, so a texel plan never splits) and the backend it was
-    planned for. distortions, shared_lens: see fuse_views; texels shade
-    under the virtual focal, then the texel image is resampled onto the
-    distorted pixels.
+    dense_e_cap / backend: the dense budget of `plan_fuse(...,
+    allow_split=False)` (texel tables are per face, so a texel plan never
+    splits) and the backend it was planned for. distortions,
+    shared_lens: see fuse_views; texels shade under the virtual focal,
+    then the texel image is resampled onto the distorted pixels.
     predict_fn: see fuse_views. clip_near: rasterize the clipped pieces
     and shade with the camera-space ray form, as a TexelsRenderer(
     clip_near=True) does (pass its tables)."""
@@ -258,36 +252,29 @@ def fuse_views_texels(vertices, faces, resolutions, first_texel_index,
         probs, images_equal_weight, weights, distortions,
         num_primitives=num_primitives, aggregator=aggregator, height=height,
         width=width, max_tris_per_tile=max_tris_per_tile,
-        clip_near=clip_near, dense_e_cap=dense_e_cap, n_global=n_global,
-        backend=backend, predict_fn=predict_fn, prim_transform=shade,
+        clip_near=clip_near, dense_e_cap=dense_e_cap, backend=backend,
+        predict_fn=predict_fn, prim_transform=shade,
         shared_lens=shared_lens, device=device,
     )
 
 
 class FusePlan:
     """Per-scene fusion plan from `plan_fuse`: the (possibly uni-permuted)
-    faces to rasterize (on the device), the dense budget tuple (None for
-    the tile rasterizer) and `n_global`, the global bucket's cap sized
-    from the same probe (dense.global_budget; None for the tile
-    rasterizer), and, when the plan split, `remap`, the (T,) map
-    from the rasterizer's row ids to original face ids (faces[remap] is
-    the permuted order). The remap rides the dense rasterizer's tables, so
-    the accumulator lands in original face order and depth ties break by
-    the original id, as in the unpermuted run. `lens_shared`: every view
-    shares one lens and intrinsics (see lens_shared), so the fusions may
-    compute the undistortion grid once."""
+    faces to rasterize (on the device), the dense budget (a
+    dense.DenseBudget; None for the tile rasterizer) and, when the plan
+    split, `remap`, the (T,) map from the rasterizer's row ids to original
+    face ids (faces[remap] is the permuted order). The remap rides the
+    dense rasterizer's tables, so the accumulator lands in original face
+    order and depth ties break by the original id, as in the unpermuted
+    run. `lens_shared`: every view shares one lens and intrinsics (see
+    lens_shared), so the fusions may compute the undistortion grid once."""
 
-    __slots__ = ("faces", "dense_e_cap", "n_global", "remap", "micro_max",
-                 "split_k", "lens_shared")
+    __slots__ = ("faces", "dense_e_cap", "remap", "lens_shared")
 
-    def __init__(self, faces, dense_e_cap, remap=None, micro_max=None,
-                 split_k=0, lens_shared=False, n_global=None):
+    def __init__(self, faces, dense_e_cap, remap=None, lens_shared=False):
         self.faces = faces
         self.dense_e_cap = dense_e_cap
-        self.n_global = n_global
         self.remap = remap  # (T,) int32 permuted id -> original id
-        self.micro_max = micro_max  # routing threshold probed (or None)
-        self.split_k = split_k  # uni-prefix length (0 = no split)
         self.lens_shared = lens_shared
 
 
@@ -297,71 +284,49 @@ def plan_fuse(vertices, faces, rotations, translations, focal_lengths,
               allow_split=True, route=None, device="cuda"):
     """Probe a scene once and build the FusePlan every batched fusion
     shares. For the tile rasterizer this is a no-op plan (no probes, no
-    budget). For the dense rasterizer: the routing pick (micro_max=None:
-    dense.pick_route on the max routing curve over the views, with
-    `route` overriding its cost coefficients) or the stats at a fixed
-    micro_max, then the choice between the uni-slot prefix and micro
-    compaction (dense.split_wins; the two are mutually exclusive).
-    allow_split=False always plans compaction, and so does clip_near: its
-    probes count the 2T piece rows, and a uni prefix would permute faces,
-    not pieces. The same probe's largest global bucket sizes the plan's
-    n_global (dense.global_budget). distortions: (N, 4|9) lens
-    wires or None; the probes then run under each view's virtual focal
-    (render._distortion_scales), the focal its render rasterizes with. A
-    few host syncs in all, never one per view."""
+    budget). For the dense rasterizer: the budget of dense.probe_budget
+    (the routing pick with micro_max=None, `route` overriding its cost
+    coefficients, or the stats at a fixed micro_max; the global bucket's
+    cap from the same probe), then the choice between the uni-slot prefix
+    and micro compaction (dense.split_wins; the two are mutually
+    exclusive). allow_split=False always plans compaction, and so does
+    clip_near: its probes count the 2T piece rows, and a uni prefix would
+    permute faces, not pieces. distortions: (N, 4|9) lens wires or None;
+    the probes then run under each view's virtual focal
+    (render._virtual_focals), the focal its render rasterizes with. A few
+    host syncs in all, never one per view."""
     with annotate("smt.setup.budgets"):
         device = resolve_device(device)
         faces_t = torch.as_tensor(faces, dtype=torch.int64, device=device)
-        n_rows = int(faces_t.shape[0]) * (2 if clip_near else 1)
         shared = lens_shared(focal_lengths, principal_points, distortions)
         if not rast.uses_dense(backend, int(faces_t.shape[0])):
             return FusePlan(faces_t, None, lens_shared=shared)
         dense = rast.dense
         face_vertices = fusion._as_f32(vertices, device)[faces_t]
-        fl = focal_lengths
-        if distortions is not None and np.any(_host(distortions)):
-            s = render._distortion_scales(
-                *(fusion._as_f32(a, device) for a in (
-                    focal_lengths, principal_points, distortions)),
-                height=height, width=width)
-            fl = _host(focal_lengths).astype(np.float32) * \
-                s.cpu().numpy()[:, None]
-        cams = (rotations, translations, fl, principal_points)
-        kw = dict(face_vertices=face_vertices, height=height, width=width,
-                  device=device)
-        if micro_max is None:
-            curve = dense.routing_stats_batch(None, None, *cams,
-                                              clip_near=clip_near,
-                                              **kw).tolist()
-            pairs, micro, micro_max = dense.pick_route(curve, n_rows,
-                                                       **(route or {}))
-            big = curve[0][2]
-        else:
-            pairs, micro, big = dense.candidate_stats_batch(
-                None, None, *cams, clip_near=clip_near, micro_max=micro_max,
-                **kw).tolist()
-        # a uni-first permutation moves rows, so it keeps this count
-        n_global = dense.global_budget(big)
-
+        cams = (rotations, translations, render._virtual_focals(
+            focal_lengths, principal_points, distortions, height=height,
+            width=width, device=device), principal_points)
+        kw = dict(height=height, width=width, device=device)
+        budget = dense.probe_budget(face_vertices, *cams, clip_near=clip_near,
+                                    micro_max=micro_max, route=route, **kw)
         if allow_split and not clip_near:
-            perm, k = dense.uni_order(None, None, *cams, **kw)
-            if k and dense.split_wins(k, n_rows, micro, micro_max):
+            perm, k = dense.uni_order(None, None, *cams,
+                                      face_vertices=face_vertices, **kw)
+            # without a floor the micro budget is the margin times the count
+            micro = budget.micro // dense.BUDGET_MARGIN
+            if k and dense.split_wins(k, int(faces_t.shape[0]), micro,
+                                      budget.micro_max):
                 perm_t = torch.as_tensor(perm, device=device)
                 pairs_s = int(dense.candidate_stats_batch(
-                    None, None, *cams, micro_split=k, micro_max=micro_max,
-                    **dict(kw, face_vertices=face_vertices[perm_t]))[0])
+                    None, None, *cams, face_vertices=face_vertices[perm_t],
+                    micro_split=k, micro_max=budget.micro_max, **kw)[0])
+                # a uni-first permutation moves rows, so n_global holds
                 return FusePlan(
                     faces_t[perm_t],
-                    (dense.BUDGET_MARGIN * pairs_s, 0, micro_max, k),
-                    remap=perm_t.to(torch.int32), micro_max=micro_max,
-                    split_k=k, lens_shared=shared, n_global=n_global,
-                )
-        return FusePlan(
-            faces_t,
-            (dense.BUDGET_MARGIN * pairs, dense.BUDGET_MARGIN * micro,
-             micro_max),
-            micro_max=micro_max, lens_shared=shared, n_global=n_global,
-        )
+                    replace(budget, pairs=dense.BUDGET_MARGIN * pairs_s,
+                            micro=0, split_k=k),
+                    remap=perm_t.to(torch.int32), lens_shared=shared)
+        return FusePlan(faces_t, budget, lens_shared=shared)
 
 
 def fuse_views_planned(plan, vertices, rotations, translations,
@@ -370,7 +335,7 @@ def fuse_views_planned(plan, vertices, rotations, translations,
                        num_primitives, aggregator, height, width, **kwargs):
     """fuse_views under a FusePlan (no probes). The accumulator comes out
     in original face order even when the plan split. Equals
-    fuse_views(faces) on the plan's backend, budget and n_global. A plan
+    fuse_views(faces) on the plan's backend and budget. A plan
     whose views share one lens hoists the grid, once lens_shared has held
     for this batch's `distortions` too (a plan may be reused on other
     views)."""
@@ -385,7 +350,7 @@ def fuse_views_planned(plan, vertices, rotations, translations,
         principal_points, probs, images_equal_weight, weights,
         prim_remap=plan.remap, num_primitives=num_primitives,
         aggregator=aggregator, height=height, width=width,
-        dense_e_cap=plan.dense_e_cap, n_global=plan.n_global, **kwargs,
+        dense_e_cap=plan.dense_e_cap, **kwargs,
     )
 
 

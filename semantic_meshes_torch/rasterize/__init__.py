@@ -64,28 +64,8 @@ def uses_dense(backend=None, num_tris=None):
     return check_backend(num_tris or 0, backend) == "dense"
 
 
-def dense_kwargs(dense_e_cap):
-    """dense.rasterize keywords of a probed budget: an int is the pair
-    budget; a (pairs, micro) tuple also sizes the micro path; a third
-    element is the routing threshold the budgets were probed at; a fourth
-    the uni-slot prefix length (micro_split, with faces permuted uni-first;
-    no micro budget then)."""
-    if dense_e_cap is None:
-        return {}
-    if not isinstance(dense_e_cap, tuple):
-        return {"e_cap_rows": int(dense_e_cap)}
-    kw = {"e_cap_rows": int(dense_e_cap[0])}
-    if len(dense_e_cap) > 3 and dense_e_cap[3] is not None:
-        kw["micro_split"] = int(dense_e_cap[3])
-    else:
-        kw["micro_cap_rows"] = int(dense_e_cap[1])
-    if len(dense_e_cap) > 2 and dense_e_cap[2] is not None:
-        kw["micro_max"] = int(dense_e_cap[2])
-    return kw
-
-
 def rasterize(vertices, faces, *args, backend=None, tri_ids=None,
-              dense_e_cap=None, n_global=None, **kwargs):
+              dense_e_cap=None, **kwargs):
     """(ids (H, W) int32 with -1 empty, depth (H, W) f32, overflow) — see
     tile_kernel.rasterize and dense.rasterize.
 
@@ -95,15 +75,14 @@ def rasterize(vertices, faces, *args, backend=None, tri_ids=None,
     z-resolve, as the JAX package's non-dense backends do, so ties break
     by face row there. With clip_near the tile backend remaps after its
     piece ids are mapped back to triangles; the dense backend refuses
-    tri_ids (its rows are clip pieces, not faces). dense_e_cap: a probed
-    dense budget (dense_kwargs); n_global: the dense global bucket's cap
-    (None: dense.N_GLOBAL); both ignored by the tile backend."""
+    tri_ids (its rows are clip pieces, not faces). dense_e_cap: the dense
+    budget, a dense.DenseBudget or any form of the JAX package's
+    (DenseBudget.of); ignored by the tile backend."""
     if check_backend(faces.shape[0], backend) == "dense":
         kwargs.pop("max_tris_per_tile", None)
-        if n_global is not None:
-            kwargs["n_global"] = int(n_global)
         return dense.rasterize(vertices, faces, *args, tri_ids=tri_ids,
-                               **dense_kwargs(dense_e_cap), **kwargs)
+                               **dense.DenseBudget.of(dense_e_cap).kwargs(),
+                               **kwargs)
     idx, z, overflow = tile_kernel.rasterize(vertices, faces, *args, **kwargs)
     if tri_ids is not None:
         tri_ids = torch.as_tensor(tri_ids, dtype=torch.int32,

@@ -8,7 +8,7 @@ DENSE_THRESHOLD faces or more (ScanNet scale), in four steps per view:
    spans at most 2x2 tiles (up to 4 (tile, triangle) pairs), "big"
    otherwise (one pair in a global bucket that every tile tests, capped at
    n_global: N_GLOBAL, the JAX package's, in a direct call; the renderers
-   and plan_fuse size it from their probe, `global_budget`);
+   and plan_fuse size it from their probe, `probe_budget`);
 2. one stable sort of the T x 5 pairs by tile id (ascending triangle ids
    within a tile) and `searchsorted` for each tile's range `starts`; the
    pair budget e_cap and the n_global cap count every pair they drop in
@@ -48,6 +48,8 @@ return. `tri_ids` is refused there: the rows are pieces, not faces.
 
 from __future__ import annotations
 
+from dataclasses import dataclass, replace
+
 import torch
 
 from ..data import resolve_device
@@ -65,7 +67,7 @@ N_GLOBAL = 1024
 # renderers and plan_fuse pick one per resolution (pick_micro_max)
 MICRO_MAX = 2
 ROUTING_THRESHOLDS = (2, 3, 4, 5)
-# the cap policy's budget margin (render._DenseCapPolicy.MARGIN)
+# every probed count is budgeted at this multiple (DenseBudget.from_counts)
 BUDGET_MARGIN = 2
 
 # Cost model of the routing pick, in ns: alpha per (tile, triangle) pair
@@ -705,12 +707,121 @@ def pick_micro_max(curve, n_setup_rows, thresholds=ROUTING_THRESHOLDS,
 
 def pick_route(curve, n_setup_rows, thresholds=ROUTING_THRESHOLDS,
                min_pairs_budget=0, **coeffs):
-    """(pairs, micro, micro_max) at the pick_micro_max threshold: the probe
-    -> pick -> budget step the renderers and plan_fuse share (scale the
-    first two by BUDGET_MARGIN for budgets). A curve's columns past the
-    second (the big rows) are not read."""
+    """(pairs, micro, micro_max) at the pick_micro_max threshold, the
+    counts probe_budget budgets. A curve's columns past the second (the
+    big rows) are not read."""
     curve = [(int(r[0]), int(r[1])) for r in curve]
     m = pick_micro_max(curve, n_setup_rows, thresholds, min_pairs_budget,
                        **coeffs)
     i = list(thresholds).index(m)
     return (curve[i][0], curve[i][1], m)
+
+
+# -------------------------------------------------------------- budgets
+
+
+@dataclass(frozen=True)
+class DenseBudget:
+    """Everything a probe decides about the dense tables of one resolution.
+
+    pairs: the pair budget (e_cap_rows; None: e_cap_factor rows a setup
+    row). micro: the micro-row budget (micro_cap_rows; None: no
+    compaction). micro_max: the routing threshold the counts were probed
+    at (None: MICRO_MAX). split_k: the uni-slot prefix length (micro_split,
+    with faces permuted uni-first; 0: no prefix, and micro sizes the
+    compaction). n_global: the global bucket's cap."""
+
+    pairs: int | None = None
+    micro: int | None = None
+    micro_max: int | None = None
+    split_k: int = 0
+    n_global: int = N_GLOBAL
+
+    @classmethod
+    def of(cls, budget):
+        """The record of a budget in any form the JAX package's rasterize
+        takes: None, an int (the pair budget), a (pairs, micro[,
+        micro_max[, split_k]]) tuple, or a record (returned as it is).
+        The JAX forms carry no cap, so they get N_GLOBAL."""
+        if budget is None:
+            return cls()
+        if isinstance(budget, cls):
+            return budget
+        if not isinstance(budget, tuple):
+            return cls(pairs=int(budget))
+        pairs, micro, micro_max, split_k = (budget + (None,) * 4)[:4]
+        if split_k is not None and not split_k:
+            micro = None  # a prefix form takes no micro budget, at k = 0 too
+        return cls(int(pairs), *(None if x is None else int(x)
+                                 for x in (micro, micro_max)),
+                   int(split_k or 0))
+
+    @classmethod
+    def from_counts(cls, pairs, micro, micro_max, big_rows, floor=None):
+        """The budget of probed counts (each the largest over the views):
+        pairs and micro rows times BUDGET_MARGIN, the global bucket's cap
+        from the big rows (global_budget), each at least its field of the
+        grow-only `floor` (a DenseBudget, or None)."""
+        floor = floor or cls(0, 0, n_global=0)
+        return cls(max(BUDGET_MARGIN * int(pairs), floor.pairs),
+                   max(BUDGET_MARGIN * int(micro), floor.micro), micro_max,
+                   0, global_budget(big_rows, floor.n_global))
+
+    def kwargs(self):
+        """The keywords of rasterize / resolve_inputs that hold this
+        budget."""
+        kw = {"n_global": self.n_global}
+        if self.pairs is not None:
+            kw["e_cap_rows"] = self.pairs
+        if self.split_k:
+            kw["micro_split"] = self.split_k
+        elif self.micro is not None:
+            kw["micro_cap_rows"] = self.micro
+        if self.micro_max is not None:
+            kw["micro_max"] = self.micro_max
+        return kw
+
+    @property
+    def zero(self):
+        """True when the pair or the micro budget is pinned to zero (the
+        probe saw none of that class, so any later one spills): the
+        renderers re-check such budgets on the overflow policy's fixed
+        duty cycle too."""
+        return self.pairs == 0 or self.micro == 0
+
+    def grown(self):
+        """The grow-only floor of the probes after this budget was
+        breached: pairs and micro doubled (at least 256 rows), n_global
+        doubled. A re-probe sees whichever camera renders next, which may
+        be a small one; the doubling passes any fixed need in O(log)
+        breaches."""
+        return replace(self, pairs=max(2 * self.pairs, 256),
+                       micro=max(2 * self.micro, 256),
+                       n_global=2 * self.n_global)
+
+
+def probe_budget(face_vertices, rot, trans, fl, pp, *, height, width,
+                 clip_near=False, micro_max=None, route=None, floor=None,
+                 device="cuda"):
+    """The DenseBudget of a camera batch (leading axis), with one host
+    sync: the max routing curve over the views and pick_route's threshold
+    (micro_max=None; `route` overrides its cost coefficients, and a
+    nonzero pair floor keeps the binning sort in the cost), or the max
+    stats at a fixed micro_max; then from_counts over the grow-only
+    `floor`. fl: the focal each view rasterizes with (a distorted view's
+    virtual focal, render._virtual_focals)."""
+    kw = dict(face_vertices=face_vertices, height=height, width=width,
+              clip_near=clip_near, device=device)
+    if micro_max is None:
+        curve = routing_stats_batch(None, None, rot, trans, fl, pp,
+                                    **kw).tolist()
+        rows = int(face_vertices.shape[0]) * (2 if clip_near else 1)
+        pairs, micro, micro_max = pick_route(
+            curve, rows, min_pairs_budget=0 if floor is None else floor.pairs,
+            **(route or {}))
+        big = curve[0][2]
+    else:
+        pairs, micro, big = candidate_stats_batch(
+            None, None, rot, trans, fl, pp, micro_max=micro_max,
+            **kw).tolist()
+    return DenseBudget.from_counts(pairs, micro, micro_max, big, floor)

@@ -73,17 +73,6 @@ def _camera_hw(camera: Camera):
     return camera.resolution[1], camera.resolution[0]
 
 
-def _zero_budget(dense_e_cap):
-    """True when the dense pair budget or micro budget is pinned to zero
-    (the probe saw none of that class, so any later occurrence spills):
-    such keys re-check on the overflow policy's fixed duty cycle too."""
-    if dense_e_cap is None:
-        return False
-    if isinstance(dense_e_cap, tuple):
-        return dense_e_cap[0] == 0 or dense_e_cap[1] == 0
-    return dense_e_cap == 0
-
-
 class _OverflowPolicy:
     """Overflow reporting without a device sync per frame.
 
@@ -177,74 +166,36 @@ class _OverflowPolicy:
 
 
 class _DenseCapPolicy:
-    """Right-sizes the dense rasterizer's budgets per resolution.
+    """Caches the dense rasterizer's budget per resolution.
 
-    The exact (pairs, micro, big rows) counts are probed once per
-    resolution (one sync) and budgeted with a 2x margin; the big rows
-    size the global bucket's cap n_global (dense.global_budget, at least
-    dense.N_GLOBAL). render_many and prepare probe the max over their
-    whole batch; for single renders, a later view above the margin spills
-    to the overflow counter, and when the overflow policy finds the
-    breach the cap is invalidated, so the next render re-probes with a
-    grow-only floor.
+    A budget (dense.DenseBudget) is probed once per resolution, with one
+    sync (dense.probe_budget); render_many and prepare probe the max over
+    their whole batch. For single renders, a later view above the margin
+    spills to the overflow counter, and when the overflow policy finds
+    the breach the budget is invalidated, so the next render re-probes
+    over a grow-only floor (DenseBudget.grown).
     """
 
-    MARGIN = 2
-
     def __init__(self):
-        self._cap = {}  # (H, W) -> (pair rows, micro rows[, micro_max])
-        self._floor = {}  # (H, W) -> previous cap (grow-only re-probes)
-        self._n_global = {}  # (H, W) -> the global bucket's cap
-        self._global_floor = {}  # (H, W) -> twice the breached n_global
+        self._cap = {}  # (H, W) -> DenseBudget
+        self._floor = {}  # (H, W) -> floor DenseBudget (grow-only re-probes)
 
     def lookup(self, key, probe):
-        """probe() -> exact (pairs, micro[, micro_max]) host ints for the
-        views at hand. Returns the budget tuple; a trailing micro_max (the
-        routing threshold the counts were probed at) is carried unscaled.
-        A pair budget of 0 makes the dense backend skip binning and its
-        kernel; any later pair at this resolution spills to overflow, as
-        do micro rows past the micro budget."""
+        """probe(floor) -> the DenseBudget of the views at hand over key's
+        floor (None before any breach); cached per key. A pair budget of 0
+        makes the dense backend skip binning and its kernel; any later
+        pair at this resolution spills to overflow, as do micro rows past
+        the micro budget."""
         if key not in self._cap:
-            vals = tuple(int(x) for x in probe())
-            floor = self._floor.get(key, (0, 0))
-            self._cap[key] = (
-                max(self.MARGIN * vals[0], floor[0]),
-                max(self.MARGIN * vals[1], floor[1]),
-            ) + vals[2:]
+            self._cap[key] = probe(self._floor.get(key))
         return self._cap[key]
 
-    def size_global(self, key, rows):
-        """Size key's n_global from a probe's largest global bucket (big
-        rows in one view), over its grow-only floor."""
-        self._n_global[key] = rast.dense.global_budget(
-            rows, self._global_floor.get(key, 0))
-
-    def n_global(self, key):
-        """The global bucket's cap in force at key (dense.N_GLOBAL before
-        any probe sized it)."""
-        return self._n_global.get(key, rast.dense.N_GLOBAL)
-
-    def floor(self, key):
-        """Grow-only budget floor of a key (nonzero after a breach): a
-        nonzero pair floor keeps the binning alive at zero probed pairs,
-        which the routing pick must know."""
-        return self._floor.get(key, (0, 0))
-
     def invalidate(self, key):
-        """Drop the cached budget so the next render re-probes. The floor
-        of later probes is double the breached cap (at least 256 rows):
-        the re-probe sees whichever camera renders next, which may be a
-        small one, and the doubling makes the budget pass any fixed need in
-        O(log) breaches."""
+        """Drop the cached budget so the next render re-probes, over the
+        breached budget's grown floor."""
         cap = self._cap.pop(key, None)
         if cap is not None:
-            self._floor[key] = (
-                max(2 * cap[0], 256),
-                max(2 * cap[1], 256),
-            )
-        n_global = self._n_global.pop(key, None)
-        if n_global is not None:
-            self._global_floor[key] = 2 * n_global
+            self._floor[key] = cap.grown()
 
 
 def _batch(rot, trans, fl, pp):
@@ -253,27 +204,6 @@ def _batch(rot, trans, fl, pp):
     if arrs[0].ndim == 2:
         arrs = [a[None] for a in arrs]
     return arrs
-
-
-def _dense_count_probe(face_vertices, rot, trans, fl, pp, *, height, width,
-                       clip_near=False, micro_max=None, device="cuda"):
-    """Max dense-path (pairs, micro, big rows) over a camera batch as a
-    (3,) device tensor: the _DenseCapPolicy probe at a fixed routing
-    threshold."""
-    return rast.dense.candidate_stats_batch(
-        None, None, rot, trans, fl, pp, face_vertices=face_vertices,
-        height=height, width=width, clip_near=clip_near, micro_max=micro_max,
-        device=device)
-
-
-def _dense_routing_probe(face_vertices, rot, trans, fl, pp, *, height, width,
-                         clip_near=False, device="cuda"):
-    """Max (pairs, micro, big rows) per routing threshold over a camera
-    batch as a (len(ROUTING_THRESHOLDS), 3) device tensor: the automatic
-    routing probe."""
-    return rast.dense.routing_stats_batch(
-        None, None, rot, trans, fl, pp, face_vertices=face_vertices,
-        height=height, width=width, clip_near=clip_near, device=device)
 
 
 def _size_bucket(t: int, floor: int) -> int:
@@ -372,49 +302,24 @@ class TrianglesRenderer:
         return self._num_faces
 
     def _dense_e_cap(self, height, width, rot, trans, fl, pp, dist=None):
-        """The dense budget tuple for (height, width), probed over the
-        given cameras (a batch, or one camera) on first use, the same
-        probe sizing the global bucket's cap (dense_cap_policy.n_global);
-        None for the tile backend. dist: the cameras' lenses (None for pinholes); the
-        probe then runs under each view's virtual focal fl * s, the focal
-        its render rasterizes with."""
-        n_faces = int(self.faces.shape[0])
-        if not rast.uses_dense(self.backend, n_faces):
+        """The dense budget (a dense.DenseBudget) for (height, width),
+        probed over the given cameras (a batch, or one camera) on first
+        use; None for the tile backend. dist: the cameras' lenses (None for
+        pinholes); the probe then runs under each view's virtual focal
+        fl * s, the focal its render rasterizes with."""
+        if not rast.uses_dense(self.backend, int(self.faces.shape[0])):
             return None
         rot, trans, fl, pp = _batch(rot, trans, fl, pp)
-        key = (height, width)
-        kw = dict(height=height, width=width, clip_near=self.clip_near,
-                  device=self.device)
-        rows = n_faces * (2 if self.clip_near else 1)
 
-        def cams():
-            if dist is None:
-                return rot, trans, fl, pp
-            d = np.broadcast_to(np.asarray(dist, np.float32),
-                                (len(fl),) + np.shape(dist)[-1:])
-            s = _distortion_scales(*(_as_f32(a, self.device)
-                                     for a in (fl, pp, d)),
-                                   height=height, width=width)
-            return rot, trans, fl * s.cpu().numpy()[:, None], pp
-
-        policy = self.dense_cap_policy
-        if self.micro_max is None:
-            def probe():
-                curve = _dense_routing_probe(self.face_vertices, *cams(),
-                                             **kw).tolist()
-                policy.size_global(key, curve[0][2])
-                return rast.dense.pick_route(
-                    curve, rows, min_pairs_budget=policy.floor(key)[0],
-                    **self.route,
-                )
-        else:
-            def probe():
-                pairs, micro, big = _dense_count_probe(
-                    self.face_vertices, *cams(), micro_max=self.micro_max,
-                    **kw).tolist()
-                policy.size_global(key, big)
-                return pairs, micro, self.micro_max
-        return policy.lookup(key, probe)
+        def probe(floor):
+            fl_v = _virtual_focals(fl, pp, dist, height=height, width=width,
+                                   device=self.device)
+            return rast.dense.probe_budget(
+                self.face_vertices, rot, trans, fl_v, pp, height=height,
+                width=width, clip_near=self.clip_near,
+                micro_max=self.micro_max, route=self.route, floor=floor,
+                device=self.device)
+        return self.dense_cap_policy.lookup((height, width), probe)
 
     def _view(self, camera, dense_e_cap, dist=None):
         """(ids (W, H) int32 with -1 empty, depth (W, H) f32, overflow) of
@@ -437,7 +342,6 @@ class TrianglesRenderer:
             height=height, width=width,
             max_tris_per_tile=self.max_tris_per_tile,
             clip_near=self.clip_near, dense_e_cap=dense_e_cap,
-            n_global=self.dense_cap_policy.n_global((height, width)),
             device=self.device,
         )
         ids = self._shade(arrays, tri)
@@ -454,7 +358,7 @@ class TrianglesRenderer:
             overflow, key, self.max_tris_per_tile,
             dense=(dense_e_cap is not None),
             recheck=(dense_e_cap is not None),
-            hot=_zero_budget(dense_e_cap),
+            hot=dense_e_cap is not None and dense_e_cap.zero,
         )
         if new and dense_e_cap is not None:
             self.dense_cap_policy.invalidate(key)
@@ -812,6 +716,23 @@ def _distortion_scales(fl, pp, dist, *, height, width):
     return torch.stack([
         _undistort_grid(fl[k], pp[k], dist[k], height=height, width=width)[1]
         for k in range(len(fl))])
+
+
+def _host(a):
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def _virtual_focals(fl, pp, dist, *, height, width, device):
+    """The focals (N, 2) a camera batch rasterizes with: fl itself, or,
+    when any lens of dist ((N, 4|9), or one lens for every view) is
+    nonzero, fl * s as f32 numpy, s each view's virtual-pinhole scale
+    (_distortion_scales). The dense budget probes run under them."""
+    if dist is None or not np.any(_host(dist)):
+        return fl
+    fl_t, pp_t, d = (_as_f32(a, device) for a in (fl, pp, dist))
+    s = _distortion_scales(fl_t, pp_t, d.expand(len(fl_t), d.shape[-1]),
+                           height=height, width=width)
+    return _host(fl).astype(np.float32) * s.cpu().numpy()[:, None]
 
 
 def _sample_pixel(grid, fl_s, pp, width, height):

@@ -27,6 +27,7 @@ Each is timed between CUDA events (profiling.times_ms) on a card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 from . import _microbench as mb
 
@@ -78,14 +79,13 @@ def main(argv=None):
                                  device=device)
     vertices = fusion._as_f32(sc.vertices, device)
     plan_fv = vertices[plan.faces]
-    mb.emit(plan_dense_e_cap=plan.dense_e_cap, split_k=plan.split_k)
+    mb.emit(plan_dense_e_cap=dataclasses.asdict(plan.dense_e_cap))
     fuse_kw = dict(num_primitives=sc.T, aggregator="sum", height=H,
                    width=W, device=device)
     timed("full planned step", lambda: distributed.render_and_accumulate(
         vertices, plan.faces, cam, probs[0], None, IEW,
         face_vertices=plan_fv, dense_e_cap=plan.dense_e_cap,
-        n_global=plan.n_global, tri_ids=plan.remap, backend="dense",
-        **fuse_kw))
+        tri_ids=plan.remap, backend="dense", **fuse_kw))
     batch_ms = mb.median_ms(lambda: distributed.fuse_views_planned(
         plan, vertices, *sc.arrays, probs, IEW, **fuse_kw),
         max(2, args.repeats // 4), device)

@@ -35,7 +35,9 @@ def fuse_kwargs(case, inputs):
     if "texel_params" in kw:
         kw["texel_params"] = tuple(inputs[k] for k in kw["texel_params"])
     if kw.get("dense_e_cap") is not None:
-        kw["dense_e_cap"] = tuple(kw["dense_e_cap"])
+        # JSON holds the JAX tuple form; the fuse is handed its record
+        kw["dense_e_cap"] = rast.dense.DenseBudget.of(
+            tuple(kw["dense_e_cap"]))
     return kw
 
 

@@ -393,8 +393,8 @@ def test_sm_rasterizer_routes_a_renderer(scene, monkeypatch):
     mesh, _, cams, _ = scene
     monkeypatch.setenv("SM_RASTERIZER", "dense")
     r = render.triangles(mesh, device="cpu")
-    assert r._dense_e_cap(96, 128, *render._camera_arrays(cams[0])) \
-        is not None
+    assert isinstance(r._dense_e_cap(96, 128, *render._camera_arrays(cams[0])),
+                      rast.dense.DenseBudget)
     monkeypatch.setenv("SM_RASTERIZER", "pallas")
     r = render.triangles(mesh, device="cpu")
     assert r._dense_e_cap(96, 128, *render._camera_arrays(cams[0])) is None

@@ -14,6 +14,7 @@ summation order).
 """
 
 import logging
+from dataclasses import replace
 from types import SimpleNamespace
 
 import jax
@@ -27,7 +28,8 @@ from semantic_meshes import render as jrender
 from semantic_meshes import testing as jtesting
 from semantic_meshes.data import stack_cameras
 from semantic_meshes.rasterize import dense as jdense
-from semantic_meshes_torch import distributed, render, testing
+from semantic_meshes_torch import data, distributed, render, testing
+from semantic_meshes_torch.rasterize import dense
 
 JAX_ROUTE = dict(alpha=jdense.ROUTE_ALPHA, beta=jdense.ROUTE_BETA,
                  gamma=jdense.ROUTE_GAMMA)
@@ -108,20 +110,42 @@ def test_overflow_policy_schedule_matches_jax(name):
         assert got[0][-1][2] == 62  # pending, unsynced since the n=64 tick
 
 
+def _policy_state(pol):
+    """A cap policy's budgets and floors in one form for both packages:
+    budgets as records without the global bucket's cap (the JAX package
+    has none), floors as (pairs, micro)."""
+    caps = {k: dense.DenseBudget.of(c) if isinstance(c, tuple)
+            else replace(c, n_global=dense.N_GLOBAL)
+            for k, c in pol._cap.items()}
+    floors = {k: f if isinstance(f, tuple) else (f.pairs, f.micro)
+              for k, f in pol._floor.items()}
+    return caps, floors
+
+
 def test_cap_policy_matches_jax():
     """lookup (2x margin, micro_max carried unscaled), floor and the
-    grow-only doubling of invalidate, step by step."""
+    grow-only doubling of invalidate, step by step: the port's policy
+    budgets the JAX policy's probed counts with DenseBudget.from_counts."""
     pols = (jrender._DenseCapPolicy(), render._DenseCapPolicy())
     key = (64, 128)
+
+    def budget(counts):
+        return lambda floor: dense.DenseBudget.from_counts(
+            *(counts + (None,))[:3], 0, floor)
+
     for probe in [(10, 3, 2), (500, 0), (0, 7, 4), (40, 40, 3)]:
         for pol in pols:
             pol.invalidate(key)
-            pol.lookup(key, lambda: probe)
-            pol.lookup(key, lambda: (10**9, 10**9))  # cached, not probed
-        assert pols[1]._cap == pols[0]._cap
-        assert pols[1]._floor == pols[0]._floor
-        assert pols[1].floor(key) == pols[0].floor(key)
-    assert pols[1]._floor[key] == (4000, 1024)  # doubled three times
+        pols[0].lookup(key, lambda: probe)
+        pols[0].lookup(key, lambda: (10**9, 10**9))  # cached, not probed
+        pols[1].lookup(key, budget(probe))
+        pols[1].lookup(key, budget((10**9, 10**9)))
+        assert _policy_state(pols[1]) == _policy_state(pols[0])
+        assert pols[0].floor(key) == _policy_state(pols[1])[1].get(key,
+                                                                    (0, 0))
+    # doubled three times, n_global too; micro_max and split_k kept
+    assert pols[1]._floor[key] == dense.DenseBudget(4000, 1024, 4, 0,
+                                                    8 * dense.N_GLOBAL)
 
 
 def _regrow_scene():
@@ -139,8 +163,7 @@ def _renderers(mesh, **kw):
 
 
 def _state(r):
-    return (dict(r.dense_cap_policy._cap), dict(r.dense_cap_policy._floor),
-            r.overflow_total())
+    return (*_policy_state(r.dense_cap_policy), r.overflow_total())
 
 
 def _ids(out):
@@ -189,7 +212,7 @@ def test_zero_budget_recheck_warns_and_regrows(caplog):
     jr, tr = _renderers(mesh)
     with caplog.at_level(logging.WARNING, logger="semantic_meshes_torch"):
         tr.render(far)
-        assert tr.dense_cap_policy._cap[(128, 256)][0] == 0
+        assert tr.dense_cap_policy._cap[(128, 256)].pairs == 0
         assert not any("overflow" in m for m in caplog.messages)
         tr.render(close)
     assert any("re-probe" in m for m in caplog.messages), caplog.messages
@@ -199,7 +222,7 @@ def test_zero_budget_recheck_warns_and_regrows(caplog):
     assert dropped > 0 and dropped == jr.overflow_total()
     assert (128, 256) not in tr.dense_cap_policy._cap
     tr.render(close)
-    assert tr.dense_cap_policy._cap[(128, 256)][0] > 0
+    assert tr.dense_cap_policy._cap[(128, 256)].pairs > 0
     assert tr.overflow_total() == dropped
 
 
@@ -213,15 +236,16 @@ def test_renderer_probes_once_and_auto_matches_fixed():
     np.testing.assert_array_equal(_ids((ids,)), _ids(want))
     key = (96, 128)
     cap = tr.dense_cap_policy._cap[key]
-    assert cap == jr.dense_cap_policy._cap[key]
-    assert len(cap) == 3 and cap[2] in (2, 3, 4, 5) and cap[0] >= 2
+    assert _state(tr)[0] == _state(jr)[0]
+    assert cap.split_k == 0 and cap.micro_max in (2, 3, 4, 5)
+    assert cap.pairs >= 2
     tr.render(cams[1])
     assert tr.dense_cap_policy._cap[key] == cap  # cached: no re-probe
     for m in (2, 5):
         fixed = render.TrianglesRenderer(mesh, backend="dense", micro_max=m,
                                          device="cpu")
         assert torch.equal(fixed.render(cams[0])[0], ids)
-        assert fixed.dense_cap_policy._cap[key][2] == m
+        assert fixed.dense_cap_policy._cap[key].micro_max == m
     assert tr.overflow_total() == 0
 
 
@@ -243,6 +267,48 @@ def test_render_many_and_prepare():
         assert torch.equal(i, ids[k]) and torch.equal(d, depth[k])
     assert r.dense_cap_policy._cap == r2.dense_cap_policy._cap
     assert r.overflow_total() == 0 and r2.overflow_total() == 0
+
+
+@pytest.mark.parametrize("lens", ["pinhole", "simple_radial"])
+@pytest.mark.parametrize("micro_max", [None, 3])
+def test_renderer_and_plan_share_one_budget(micro_max, lens):
+    """TrianglesRenderer.prepare and plan_fuse(allow_split=False) budget
+    the same cameras through one probe function: equal records, the
+    global bucket's cap past N_GLOBAL included (1485 big rows). A breach's
+    floor doubles pairs and micro (at least 256) and n_global and keeps
+    micro_max and split_k; the re-probe holds every budget at its floor."""
+    v, f, cam = testing.big_rows_scene()
+    dist = np.array([-0.12, 0, 0, 0], np.float32) \
+        if lens == "simple_radial" else None
+    cams = [data.Camera(cam.rotation, t, cam.resolution, cam.focal_lengths,
+                        cam.principal_point, distortion=dist)
+            for t in ([0.0, 0.0, 0.0], [0.5, -0.2, 1.0])]
+    lenses = data.stack_distortions(cams) if lens == "simple_radial" \
+        else None
+    r = render.TrianglesRenderer(SimpleNamespace(vertices=v, faces=f),
+                                 backend="dense", micro_max=micro_max,
+                                 device="cpu")
+    r.prepare(cams)
+    key = (cam.resolution[1], cam.resolution[0])
+    budget = r.dense_cap_policy._cap[key]
+    plan = distributed.plan_fuse(
+        v, f, *data.stack_cameras(cams), height=key[0], width=key[1],
+        backend="dense", micro_max=micro_max, distortions=lenses,
+        allow_split=False, device="cpu")
+    assert plan.dense_e_cap == budget
+    assert budget.n_global > dense.N_GLOBAL and budget.split_k == 0
+    assert micro_max is None or budget.micro_max == micro_max
+
+    r.dense_cap_policy.invalidate(key)
+    floor = r.dense_cap_policy._floor[key]
+    assert floor == dense.DenseBudget(
+        max(2 * budget.pairs, 256), max(2 * budget.micro, 256),
+        budget.micro_max, 0, 2 * budget.n_global)
+    r.render(cams[0])
+    again = r.dense_cap_policy._cap[key]
+    assert (again.pairs >= floor.pairs and again.micro >= floor.micro
+            and again.n_global >= floor.n_global)
+    assert r.overflow_total() == 0
 
 
 PLAN_CASES = {
@@ -272,9 +338,9 @@ def _plans(name, monkeypatch):
 @pytest.mark.parametrize("name", sorted(PLAN_CASES))
 def test_plan_fuse_matches_jax(name, monkeypatch):
     _, jplan, tplan = _plans(name, monkeypatch)
-    assert tplan.dense_e_cap == jplan.dense_e_cap
-    assert tplan.split_k == jplan.split_k
-    assert tplan.micro_max == jplan.micro_max
+    assert tplan.dense_e_cap == dense.DenseBudget.of(jplan.dense_e_cap)
+    assert tplan.dense_e_cap.split_k == jplan.split_k
+    assert tplan.dense_e_cap.micro_max == jplan.micro_max
     np.testing.assert_array_equal(tplan.faces.numpy(),
                                   np.asarray(jplan.faces))
     if jplan.remap is None:
@@ -282,7 +348,7 @@ def test_plan_fuse_matches_jax(name, monkeypatch):
     else:
         np.testing.assert_array_equal(tplan.remap.numpy(),
                                       np.asarray(jplan.remap))
-    assert (tplan.split_k > 0) == (name in ("split", "fixed_m3"))
+    assert (tplan.dense_e_cap.split_k > 0) == (name in ("split", "fixed_m3"))
 
 
 @pytest.mark.parametrize("name", ["split", "compaction_wins"])

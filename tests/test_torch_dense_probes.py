@@ -22,7 +22,6 @@ from semantic_meshes import testing as jtesting
 from semantic_meshes.data import stack_cameras
 from semantic_meshes.rasterize import dense as jdense
 from semantic_meshes_torch import rasterize as trast
-from semantic_meshes_torch import render
 from semantic_meshes_torch.rasterize import dense
 
 JAX_ROUTE = dict(alpha=jdense.ROUTE_ALPHA, beta=jdense.ROUTE_BETA,
@@ -162,7 +161,8 @@ def test_uni_probes_match_jax():
 
 
 def test_routing_probes_match_jax():
-    """routing_stats (one view), the renderer's batched routing probe, and
+    """routing_stats (one view), its batched form (the probe of
+    dense.probe_budget) against the JAX renderer's routing probe, and
     each row of the curve against candidate_stats at that threshold."""
     v, f = sc.routing_scene()
     rot, trans, fl, pp = _views(3, 256, 96, radius=2.5)
@@ -177,15 +177,17 @@ def test_routing_probes_match_jax():
     got_one = dense.routing_stats(v, f, rot[0], trans[0], fl[0], pp[0],
                                   device="cpu", **dims)
     np.testing.assert_array_equal(got_one.numpy()[:, :2], want_one)
-    got = render._dense_routing_probe(torch.from_numpy(fv), rot, trans, fl,
-                                      pp, device="cpu", **dims)
+    got = dense.routing_stats_batch(None, None, rot, trans, fl, pp,
+                                    face_vertices=torch.from_numpy(fv),
+                                    device="cpu", **dims)
     np.testing.assert_array_equal(got.numpy()[:, :2], want_batch)
     for i, m in enumerate(dense.ROUTING_THRESHOLDS):
         row = dense.candidate_stats(v, f, rot[0], trans[0], fl[0], pp[0],
                                     micro_max=m, device="cpu", **dims)
         np.testing.assert_array_equal(got_one[i].numpy(), row.numpy())
-    stats = render._dense_count_probe(torch.from_numpy(fv), rot, trans, fl,
-                                      pp, micro_max=3, device="cpu", **dims)
+    stats = dense.candidate_stats_batch(None, None, rot, trans, fl, pp,
+                                        face_vertices=torch.from_numpy(fv),
+                                        micro_max=3, device="cpu", **dims)
     np.testing.assert_array_equal(stats.numpy()[:2], want_batch[1])
 
 
@@ -225,7 +227,6 @@ def test_split_gate_and_margins_match_jax():
         assert dense.split_wins(k, rows, micro, m) == \
             jdense.split_wins(k, rows, micro, m)
     assert dense.BUDGET_MARGIN == jdense.BUDGET_MARGIN
-    assert render._DenseCapPolicy.MARGIN == dense.BUDGET_MARGIN
     assert (dense.TILE_H, dense.TILE_W, dense.K_SPAN) == (
         jdense.TILE_H, jdense.TILE_W, jdense.K_SPAN)
     assert dense.ROUTING_THRESHOLDS == jdense.ROUTING_THRESHOLDS

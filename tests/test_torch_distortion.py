@@ -260,6 +260,7 @@ class TestDistortedRender:
         cam, jcam = make_camera()
         idx_p, dep_p = r.render(cam)
         cap = r._dense_e_cap(48, 64, *render._camera_arrays(cam))
+        assert (cap is None) == (backend == "tile")
         idx_d, dep_d, _ = r._view(cam, cap, cam.distortion)
         assert torch.equal(idx_d, idx_p.view(torch.int32))
         assert torch.equal(dep_d.view(torch.int32), dep_p.view(torch.int32))

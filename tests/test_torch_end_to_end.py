@@ -300,13 +300,14 @@ def test_unported_features_raise(tmp_path, cube_scene):
     ids, depth = clipped.render(cam)
     assert bool((ids.view(torch.int32) == -1).all())
     assert bool(torch.isinf(depth).all()) and clipped.overflow_total() == 0
-    assert clipped.dense_cap_policy._cap[(cam.height, cam.width)][:2] == (0, 0)
+    budget = clipped.dense_cap_policy._cap[(cam.height, cam.width)]
+    assert (budget.pairs, budget.micro) == (0, 0)
     assert render.triangles(big, backend="tile",
                             device="cpu").getPrimitivesNum() == 16384
     rot, trans, fl, pp = stack_cameras(cams)
     plan = distributed.plan_fuse(vertices, big.faces, rot, trans, fl, pp,
                                  height=128, width=160, device="cpu")
-    assert plan.dense_e_cap == (0, 0, 2)
+    assert plan.dense_e_cap == render.rast.dense.DenseBudget(0, 0, 2)
 
 
 def test_convert_camera_and_ply(tmp_path, cube_scene):

@@ -126,7 +126,7 @@ def test_renderer_holds_every_big_row():
     r.prepare([cam])
     ids, depth = r.render(cam)
     assert r.overflow_total() == 0
-    assert r.dense_cap_policy.n_global((H, W)) == 2 * bucket
+    assert r.dense_cap_policy._cap[(H, W)].n_global == 2 * bucket
     counters = profiling.counters()
     assert counters["dense.global_rows"] >= bucket
     assert counters["dense.n_global"] >= 2 * bucket
@@ -161,7 +161,7 @@ def test_plan_fuse_carries_the_cap_to_the_batched_path():
     plan = distributed.plan_fuse(v, f, rot, trans, fl, pp, height=H,
                                  width=W, backend="dense", device="cpu")
     bucket = max(_bucket(v, f, c, H, W) for c in cams)
-    assert plan.n_global == 2 * bucket
+    assert plan.dense_e_cap.n_global == 2 * bucket
     acc, overflow = distributed.fuse_views_planned(
         plan, v, rot, trans, fl, pp, probs, 0.5, num_primitives=len(f),
         aggregator="sum", height=H, width=W, backend="dense", device="cpu")
@@ -173,7 +173,8 @@ def test_plan_fuse_carries_the_cap_to_the_batched_path():
     for k, c in enumerate(cams):
         agg.add(r.render(c)[0], torch.as_tensor(probs[k]).transpose(0, 1))
     assert r.overflow_total() == 0
-    assert r.dense_cap_policy.n_global((H, W)) == plan.n_global
+    assert r.dense_cap_policy._cap[(H, W)].n_global == \
+        plan.dense_e_cap.n_global
     torch.testing.assert_close(acc, agg.state, rtol=1e-6, atol=1e-6)
 
 
@@ -192,18 +193,19 @@ def test_breach_regrows_n_global_and_never_shrinks_it():
     policy = r.dense_cap_policy
     key = (H, W)
     r.render(far)
-    caps = [policy.n_global(key)]
+    caps = [policy._cap[key].n_global]
     assert caps[0] == dense.N_GLOBAL and r.overflow_total() == 0
     r.render(cam)  # the breach, found at the policy's second check
     dropped = r.overflow_total()
-    assert dropped > 0 and key not in policy._n_global
+    assert dropped > 0 and key not in policy._cap
+    assert policy._floor[key].n_global == 2 * caps[0]
     r.render(cam)  # re-probes
-    caps.append(policy.n_global(key))
+    caps.append(policy._cap[key].n_global)
     assert caps[-1] >= 2 * bucket and r.overflow_total() == dropped
     for _ in range(2):
         policy.invalidate(key)
         r.render(far)
-        caps.append(policy.n_global(key))
+        caps.append(policy._cap[key].n_global)
     assert caps == sorted(caps) and caps[-1] > caps[1]
     r.render(cam)
     assert r.overflow_total() == dropped

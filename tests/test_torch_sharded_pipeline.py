@@ -22,6 +22,7 @@ from semantic_meshes import testing as jtesting
 from semantic_meshes.data import stack_cameras
 from semantic_meshes.rasterize import dense as jdense
 from semantic_meshes_torch import distributed
+from semantic_meshes_torch.rasterize import dense
 
 RTOL, ATOL = 2e-5, 1e-5
 ARGS = ("vertices", "faces", "rot", "trans", "fl", "pp", "probs", "iew")
@@ -125,15 +126,17 @@ def test_sharded_matches_single_chip(world, layout):
 
 
 def test_sharded_micro_split_matches_single_chip(world, micro, monkeypatch):
-    """The dense backend's uni-slot prefix (a 4-tuple dense_e_cap) on a
-    (2, 2) mesh: each band rasterizes its rows through the split."""
+    """The dense backend's uni-slot prefix (a 4-tuple dense_e_cap, its
+    DenseBudget in the port's ranks) on a (2, 2) mesh: each band
+    rasterizes its rows through the split."""
     monkeypatch.setenv("SM_RASTERIZER", "dense")
     inputs, cap = micro
     kw = dict(num_primitives=19200, aggregator="sum", height=96, width=128,
               dense_e_cap=cap)
     ref, ref_ov = ts.jax_sharded((2, 2), *(inputs[k] for k in ARGS), **kw)
     got, ov = world.replicated("micro_split_22")
-    one, one_ov = one_device(inputs, backend="dense", **kw)
+    one, one_ov = one_device(inputs, backend="dense",
+                             **dict(kw, dense_e_cap=dense.DenseBudget.of(cap)))
     assert ov == ref_ov == one_ov == 0
     np.testing.assert_allclose(got, ref, rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got, one, rtol=RTOL, atol=ATOL)

@@ -108,8 +108,8 @@ def test_dense_fuse_views_texels_matches_per_view_and_jax(
     plan = distributed.plan_fuse(vertices, renderer.faces,
                                  *stack_cameras(cams), height=96, width=128,
                                  allow_split=False, device="cpu")
-    assert plan.split_k == 0 and plan.remap is None
-    assert plan.dense_e_cap is not None and plan.dense_e_cap[0] > 0
+    assert plan.dense_e_cap.split_k == 0 and plan.remap is None
+    assert plan.dense_e_cap.pairs > 0
     acc, overflow = _fuse(renderer, vertices, cams, probs, aggregator,
                           dense_e_cap=plan.dense_e_cap)
     assert int(overflow) == 0
