@@ -705,13 +705,17 @@ def dense_vs_plain(device):
 
 # windows of read_launches where a dense view was prepared off the
 # dense_prep kernels' route or with other than their launches, or a view
-# fused on the card off the fusion kernels' route; main (and each sharded
-# rank) raises at its end if any
+# fused or texel-shaded on the card off the fusion or texel kernels'
+# route; main (and each sharded rank) raises at its end if any
 PREP_FAULTS = []
 
 # views given to fusion._accumulate_view on the card since reset_launches
 # (count_fused's wrapper counts them)
 FUSED = {"views": 0}
+
+# views given to render._texel_prim_image on the card since
+# reset_launches (count_shaded's wrapper counts them)
+SHADED = {"views": 0}
 
 
 def count_fused():
@@ -735,12 +739,34 @@ def count_fused():
     fusion._accumulate_view = accumulate_view
 
 
+def count_shaded():
+    """Wrap render._texel_prim_image, once a process, so that every triangle
+    -id image it is given on the card counts in SHADED. TexelsRenderer.
+    _shade, fuse_views_texels and the sharded fuse call it through the
+    module, so the count is the views the window shaded."""
+    from semantic_meshes_torch import render
+
+    inner = render._texel_prim_image
+    if getattr(inner, "counts_shaded", False):
+        return
+
+    def texel_prim_image(*args, **kwargs):
+        tri = args[6] if len(args) > 6 else kwargs["tri_index"]
+        if tri.is_cuda:
+            SHADED["views"] += 1
+        return inner(*args, **kwargs)
+
+    texel_prim_image.counts_shaded = True
+    render._texel_prim_image = texel_prim_image
+
+
 def reset_launches():
-    from semantic_meshes_torch import fusion_kernel
+    from semantic_meshes_torch import fusion_kernel, texel_kernel
     from semantic_meshes_torch.rasterize import (dense_kernel, dense_prep,
                                                  tile_kernel)
 
     count_fused()
+    count_shaded()
     tile_kernel.launches = 0
     dense_kernel.launches = 0
     dense_prep.launches = 0
@@ -748,6 +774,9 @@ def reset_launches():
     fusion_kernel.launches = 0
     fusion_kernel.views = 0
     FUSED["views"] = 0
+    texel_kernel.launches = 0
+    texel_kernel.views = 0
+    SHADED["views"] = 0
 
 
 def read_launches():
@@ -755,9 +784,10 @@ def read_launches():
     dense_prep kernels prepared every dense view of the window: 3 launches
     a view whose pairs kernel B then resolved, 2 a view with no pair
     budget (no kernel B), so their launches are 2 a view prepared plus
-    raster_dense's; and that the fusion kernels fused every view the
-    window fused on the card (FUSED), 3 launches a view. A window that
-    breaks either goes to PREP_FAULTS."""
+    raster_dense's; that the fusion kernels fused every view the window
+    fused on the card (FUSED), 3 launches a view; and that the texel
+    kernels shaded every view the window shaded on the card (SHADED), 2
+    launches a view. A window that breaks any goes to PREP_FAULTS."""
     from semantic_meshes_torch.rasterize import dense_kernel, tile_kernel
 
     prep = read_prep()
@@ -771,6 +801,13 @@ def read_launches():
         PREP_FAULTS.append(
             f"{fused['launches']} fusion kernel launches for "
             f"{fused['views']} views, of {FUSED['views']} views fused on "
+            "the card")
+    shaded = read_texels()
+    if (shaded["views"] != SHADED["views"]
+            or shaded["launches"] != 2 * shaded["views"]):
+        PREP_FAULTS.append(
+            f"{shaded['launches']} texel kernel launches for "
+            f"{shaded['views']} views, of {SHADED['views']} views shaded on "
             "the card")
     return {"raster_tile": tile_kernel.launches,
             "raster_dense": dense_kernel.launches}
@@ -789,6 +826,22 @@ def read_fusion():
     from semantic_meshes_torch import fusion_kernel
 
     return {"launches": fusion_kernel.launches, "views": fusion_kernel.views}
+
+
+def read_texels():
+    """{"launches", "views"} of the texel kernels since reset_launches."""
+    from semantic_meshes_torch import texel_kernel
+
+    return {"launches": texel_kernel.launches, "views": texel_kernel.views}
+
+
+def check_texels(label, shaded, views):
+    """Raises unless the texel kernels shaded `views` views, 2 launches a
+    view."""
+    want = {"launches": 2 * views, "views": views}
+    if shaded != want:
+        raise AssertionError(f"{label}: texel kernels {shaded}, expected "
+                             f"{want}")
 
 
 def check_fusion(label, fused, views):
@@ -819,7 +872,8 @@ def check_prep(label, prep, budgets):
 def raise_prep_faults():
     if PREP_FAULTS:
         raise AssertionError("views prepared off the dense_prep kernels' "
-                             "route or fused off the fusion kernels': "
+                             "route, fused off the fusion kernels' or "
+                             "shaded off the texel kernels': "
                              + " | ".join(PREP_FAULTS))
 
 
@@ -1137,6 +1191,9 @@ def texel_main_path(name, device, workdir):
     # sum, summax and mul by add, then two fuse_views_texels batches
     fused = read_fusion()
     check_fusion(name, fused, 5 * n_views)
+    # render, render_many and the two batches shade each view
+    shaded = read_texels()
+    check_texels(name, shaded, 4 * n_views)
 
     if not torch.equal(runs[0], runs[1]):
         raise AssertionError(f"{name}: repeated fusion is not bit-identical")
@@ -1191,7 +1248,7 @@ def texel_main_path(name, device, workdir):
         f"prepare + render + render_many, "
         f"sum/summax/mul fused, colours, overflow 0, launches {launches} == "
         f"{expect} views rasterized with pairs, dense_prep {prep}, fusion "
-        f"{fused}, every texel id < P, the "
+        f"{fused}, texel kernels {shaded}, every texel id < P, the "
         f"card's shader == the CPU's on every view"
         f"{', each == first_texel_index[face]' if name == 'texels01' else ''}"
         f", fuse_views_texels == per-view (bit-equal: "
@@ -2771,8 +2828,9 @@ def texel_times(name, ctx, device, card):
     """Per view at a texel preset, each as launched from Python (CUDA
     events, medians): setup + dense binning (setup, classify, sort
     binning, the micro path and the table: dense.resolve_inputs),
-    raster_dense, the texel shader (also from graph replays, with the
-    bound of its bytes) and fusion (sum over the texels)."""
+    raster_dense, the texel shader's kernels (also from graph replays,
+    with the bound of its bytes, and the plain chain it replaces, whose
+    ids they equal on every view) and fusion (sum over the texels)."""
     from semantic_meshes_torch import fusion, render
     from semantic_meshes_torch.rasterize import dense_kernel
 
@@ -2788,18 +2846,25 @@ def texel_times(name, ctx, device, card):
         lambda: [dense_kernel.resolve_dense_cuda(*a) for a in inputs],
         reps=10) / n_views
     tris = [dense_kernel.resolve_dense_cuda(*a)[1] for a in inputs]
-    # camera arrays on the card, so the shader's launches can be captured
+    # camera arrays on the card, as a batch's slices reach the shader
     cam_t = [tuple(torch.as_tensor(a, device=device) for a in cam_args(c))
              for c in cams]
 
-    def shade_all():
-        return [render._texel_prim_image(
+    def shade_all(shader=render._texel_prim_image):
+        return [shader(
             renderer.vertices, renderer.faces, *ca, tri, renderer.resolutions,
             renderer.first_texel_index, P) for ca, tri in zip(cam_t, tris)]
 
     shader_ms = cuda_time_ms(shade_all, reps=10) / n_views
     shader_graph_ms = graph_time_ms(shade_all, reps=10) / n_views
+    shader_plain_ms = cuda_time_ms(
+        lambda: shade_all(render._texel_prim_image_plain), reps=3) / n_views
     prims = shade_all()
+    for k, plain in enumerate(shade_all(render._texel_prim_image_plain)):
+        if not torch.equal(prims[k], plain):
+            raise AssertionError(f"{name} view {k}: the texel kernels differ "
+                                 "from the plain chain on "
+                                 f"{int((prims[k] != plain).sum())} pixels")
     fusion_ms = cuda_time_ms(
         lambda: [fusion._accumulate_view(prims[k], ctx["probs"][k], None, IEW,
                                          num_primitives=P, aggregator="sum")
@@ -2816,12 +2881,15 @@ def texel_times(name, ctx, device, card):
         f"view: setup + dense binning + micro path + table {setup_ms:.6f} "
         f"ms, raster_dense {kernel_ms:.6f} ms, texel shader {shader_ms:.6f} "
         f"ms launched ({shader_graph_ms:.6f} ms in graph replays; its bytes "
-        f"bound {shader_bound:.6f} ms for {nbytes} bytes), fusion (sum, "
+        f"bound {shader_bound:.6f} ms for {nbytes} bytes; the plain chain "
+        f"{shader_plain_ms:.6f} ms launched, == the kernels on every view), "
+        f"fusion (sum, "
         f"{classes} classes over {P} texels) "
         f"{fusion_ms:.6f} ms"
     )
     return dict(setup_ms=setup_ms, kernel_ms=kernel_ms, shader_ms=shader_ms,
                 shader_graph_ms=shader_graph_ms, shader_bound_ms=shader_bound,
+                shader_plain_ms=shader_plain_ms,
                 fusion_ms=fusion_ms)
 
 

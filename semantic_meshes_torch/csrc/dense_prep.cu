@@ -50,6 +50,8 @@
 
 #include <cuda_runtime.h>
 
+#include "setup_common.cuh"
+
 namespace sm_dense_prep {
 
 // Everything of one view; the wrapper fills it (dense_prep.py's _Params,
@@ -92,12 +94,16 @@ struct Params {
 namespace {
 
 using sm_dense_prep::Params;
+using sm_setup::add;
+using sm_setup::kZNear;
+using sm_setup::mul;
+using sm_setup::quot;
+using sm_setup::sub;
 
 constexpr int kThreads = 256;  // rows a block (the block counts' unit)
 constexpr int kSpan = 5;       // tile ids a row: 4 span cells + 1 global
 constexpr int kTileH = 16;
 constexpr int kTileW = 128;
-constexpr float kZNear = 1e-6f;      // tiles.Z_NEAR
 constexpr float kClipZNear = 1e-4f;  // tiles.CLIP_Z_NEAR
 constexpr long long kBgKey = (0x7f800000LL << 32) | 0x7fffffffLL;
 constexpr unsigned kFull = 0xffffffffu;
@@ -114,20 +120,6 @@ struct Class {
   int bx0, by0, span_h, span_w;
   long long ix0, iy0;  // first covered pixel centre (int32 range)
 };
-
-// each operation rounded to nearest on its own, never contracted
-__device__ __forceinline__ float mul(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ float add(float a, float b) {
-  return __fadd_rn(a, b);
-}
-__device__ __forceinline__ float sub(float a, float b) {
-  return __fsub_rn(a, b);
-}
-__device__ __forceinline__ float quot(float a, float b) {
-  return __fdiv_rn(a, b);
-}
 
 // torch.clamp's rule: NaN passes through
 __device__ __forceinline__ float clamp_nan(float v, float lo, float hi) {
@@ -160,32 +152,6 @@ __device__ __forceinline__ long long to_i32(float x) {
 
 __device__ __forceinline__ int wrap_i32(long long x) {
   return static_cast<int>(static_cast<unsigned>(x));
-}
-
-// The camera: by value, each group overridden by its device pointer
-__device__ __forceinline__ void load_camera(const Params& p, float (&k)[16]) {
-#pragma unroll
-  for (int i = 0; i < 16; ++i) k[i] = p.cam[i];
-  constexpr int kOff[5] = {0, 9, 12, 14, 16};
-#pragma unroll
-  for (int g = 0; g < 4; ++g) {
-    if (p.cam_ptr[g] != nullptr) {
-#pragma unroll
-      for (int i = kOff[g]; i < kOff[g + 1]; ++i)
-        k[i] = __ldg(p.cam_ptr[g] + (i - kOff[g]));
-    }
-  }
-}
-
-// geometry.rigid_transform: ((r0 x + r1 y) + r2 z) + t, row by row
-__device__ __forceinline__ void transform(const float (&k)[16],
-                                          const float* v, float* out) {
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    out[i] = add(add(add(mul(k[3 * i], v[0]), mul(k[3 * i + 1], v[1])),
-                     mul(k[3 * i + 2], v[2])),
-                 k[9 + i]);
-  }
 }
 
 // one end of an edge cut at the clipping plane (geometry.clip_triangles_
@@ -241,25 +207,16 @@ __device__ __forceinline__ bool clip_piece(float (&v)[3][3], int piece) {
 __device__ __forceinline__ void setup_from(const float (&px)[3],
                                            const float (&py)[3],
                                            const float (&z)[3], Setup& s) {
-  constexpr int kI[3] = {1, 2, 0};
-  constexpr int kJ[3] = {2, 0, 1};
 #pragma unroll
   for (int e = 0; e < 3; ++e) {
-    const float ax = px[kI[e]], ay = py[kI[e]];
-    const float bx = px[kJ[e]], by = py[kJ[e]];
-    const float dy = sub(by, ay);
-    s.a[e] = -dy;
-    s.b[e] = sub(bx, ax);
-    s.c[e] = sub(mul(dy, ax), mul(s.b[e], ay));
+    sm_setup::edge(px, py, e, s.a[e], s.b[e], s.c[e]);
   }
   s.denom = add(add(add(mul(s.a[0], px[0]), mul(s.b[0], py[0])), s.c[0]),
                 0.0f);  // -0 -> +0
   const float safe = s.denom == 0.0f ? 1.0f : s.denom;
   float iz[3];
 #pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    iz[i] = quot(1.0f, isnan(z[i]) ? z[i] : fmaxf(z[i], kZNear));
-  }
+  for (int i = 0; i < 3; ++i) iz[i] = sm_setup::inv_depth(z[i]);
   s.az = quot(add(add(mul(s.a[0], iz[0]), mul(s.a[1], iz[1])),
                  mul(s.a[2], iz[2])), safe);
   s.bz = quot(add(add(mul(s.b[0], iz[0]), mul(s.b[1], iz[1])),
@@ -287,15 +244,14 @@ __device__ __forceinline__ void row_setup(const Params& p,
   for (int i = 0; i < 3; ++i) {
     float w[3] = {__ldg(fv + 3 * i), __ldg(fv + 3 * i + 1),
                   __ldg(fv + 3 * i + 2)};
-    transform(k, w, v[i]);
+    sm_setup::transform(k, w, v[i]);
   }
   bool piece_valid = true;
   if (p.clip) piece_valid = clip_piece(v, row & 1);
   float px[3], py[3], z[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    px[i] = add(mul(k[12], quot(v[i][0], v[i][2])), k[14]);
-    py[i] = add(mul(k[13], quot(v[i][1], v[i][2])), k[15]);
+    sm_setup::project(k, v[i], px[i], py[i]);
     z[i] = v[i][2];
   }
   setup_from(px, py, z, s);
@@ -362,7 +318,7 @@ dense_setup_kernel(const Params p, int row_blocks) {
   unsigned pairs = 0;
   if (row < p.rows) {
     float k[16];
-    load_camera(p, k);
+    sm_setup::load_camera(p, k);
     Setup s;
     row_setup(p, k, row, s);
     const Class c = classify(p, s, row);
@@ -470,7 +426,7 @@ dense_micro_kernel(const Params p) {
   Class c;
   c.micro = false;
   if (row < p.rows) {
-    load_camera(p, k);
+    sm_setup::load_camera(p, k);
     row_setup(p, k, row, s);
     c = classify(p, s, row);
   }

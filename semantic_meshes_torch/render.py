@@ -48,7 +48,7 @@ import os
 import numpy as np
 import torch
 
-from . import geometry
+from . import geometry, texel_kernel
 from . import rasterize as rast
 from .data import (Camera, Colmap, Ply, resolve_device, stack_cameras,
                    stack_distortions)
@@ -556,12 +556,10 @@ class TexelsRenderer(TrianglesRenderer):
         # camera_arrays carry the virtual focal of a distorted view: the
         # shader must see the focal the triangle ids were rasterized under
         with span("smt.texel_shader"):
-            prim = _texel_prim_image(
+            return _texel_prim_image(
                 self.vertices, self.faces, *camera_arrays, tri,
-                self.resolutions, self.first_texel_index,
-                self._primitive_num, clip_near=self.clip_near)
-            return torch.where(prim < self._primitive_num, prim,
-                               torch.full_like(prim, -1))
+                self.resolutions, self.first_texel_index, -1,
+                clip_near=self.clip_near)
 
 
 def _camera_arrays(camera):
@@ -575,7 +573,30 @@ def _texel_prim_image(vertices, faces, rotation, translation, focal_lengths,
                       clip_near=False):
     """Texel primitive ids (H, W) int32 of a rasterized triangle-id image
     tri_index (H, W) int32 (-1 empty); pixels of no texel (empty, or on a
-    triangle of resolution 0) get `num_primitives`.
+    triangle of resolution 0) get `num_primitives`, the id the caller
+    gives them (the texel count P, or -1).
+
+    A CUDA tri_index is shaded by the hand-written kernels of texel_kernel
+    (two launches, the camera by value, no host wait), a CPU one by the
+    plain chain `_texel_prim_image_plain`; both give the same ids."""
+    if tri_index.is_cuda:
+        return texel_kernel.texel_ids(
+            vertices, faces, (rotation, translation, focal_lengths,
+                              principal_point), tri_index, resolutions,
+            first_texel_index, num_primitives, y_offset=y_offset,
+            clip_near=clip_near)
+    return _texel_prim_image_plain(
+        vertices, faces, rotation, translation, focal_lengths,
+        principal_point, tri_index, resolutions, first_texel_index,
+        num_primitives, y_offset, clip_near)
+
+
+def _texel_prim_image_plain(vertices, faces, rotation, translation,
+                            focal_lengths, principal_point, tri_index,
+                            resolutions, first_texel_index, num_primitives,
+                            y_offset=0, clip_near=False):
+    """_texel_prim_image as a chain of PyTorch ops: the CPU implementation
+    and the card kernels' oracle (texel_kernel).
 
     TexturedTriangle::getTexelIndex (ref: TexturedTriangleRenderer.h:31-41)
     as a pass over the winning fragments. A pixel's perspective-correct uv
