@@ -6,10 +6,10 @@
 // semantic_meshes_torch/rasterize/tile_kernel.py::resolve_tiles_plain.
 //
 // What it computes. The binning pass gives each (32, 128) screen tile b a
-// list of counts[b] <= 256 candidate triangles, ascending ids padded with
-// the sentinel row. Each candidate is tested at each pixel centre: three
-// edge forms pre-multiplied by sign(area), inside when every w_i >= 0, and
-// an inverse-depth plane. A serial scan of the list with a strict inv_z >
+// list of counts[b] candidate triangles, ascending ids padded with the
+// sentinel row to n_slots a tile (any length). Each candidate is tested at
+// each pixel centre: three edge forms pre-multiplied by sign(area), inside
+// when every w_i >= 0, and an inverse-depth plane. A serial scan of the list with a strict inv_z >
 // buffer (buffer 0 at first) keeps, per pixel, the first candidate in list
 // order that reaches the largest inv_z > 0, so the lowest id on a depth
 // tie. Each pixel gets z = 1/inv_z (+inf where empty) and the winner's id
@@ -25,17 +25,22 @@
 //    stays out of the pixel loop), 32 rectangles a tile. A CTA of 8 warps
 //    takes one 8-row band of a tile, so a tile's pixels are spread over 32
 //    warps of four CTAs.
-// 2. The CTA stages the tile's list once: thread c fetches row c (64 bytes,
-//    cp.async, addressed through the id, which it loads beside the count),
-//    and one barrier hands the list (at most 256 rows, 16 KB) to every warp.
+// 2. The CTA stages the tile's list in chunks of kMaxCand = 256 rows (16
+//    KB): thread c fetches row c of the chunk (64 bytes, cp.async,
+//    addressed through the id; the first chunk's id is loaded beside the
+//    count), and a barrier hands the chunk to every warp; once every warp
+//    has scanned it, a second barrier frees the buffer for the next chunk.
+//    A list of 256 or fewer rows is one chunk and one barrier.
 // 3. Each warp scans the whole list in order, in batches of 32: lane i tests
 //    candidate i of the batch against the warp's rectangle by the exact
 //    corner rule (corner_max; raster_common.cuh proves it; the depth plane
 //    against the warp's smallest inv_z at the batch's start), and a ballot
 //    leaves the survivors, which the whole warp tests at its 128 pixels in
 //    order. Each pixel belongs to one warp and that warp sees the full list
-//    in order, so the result is the serial scan's by construction: no
-//    merge, no scratch, no atomics, no dependence on scheduling.
+//    in order, chunk after chunk with its buffer held in registers, so the
+//    result is the serial scan's by construction: no merge, no scratch, no
+//    atomics, no dependence on scheduling. A chunk is a multiple of the
+//    batch, so the batches and their culls are those of one long list.
 // On the H100, 16 x 8 rectangles beat 16 x 16 (a heavy rectangle's
 // survivors cost half as much per warp; more warps cost more in the empty
 // tiles), and the CTA-staged list beat per-warp double-buffered batches
@@ -89,10 +94,25 @@ static_assert(kBandsPerTile * kWarps * kWarpCols * kWarpRows ==
                   kTileH * kTileW,
               "the warps' rectangles tile the tile");
 constexpr int kBatch = 32;  // candidates a warp culls per ballot
-constexpr int kMaxCand = 256;
+constexpr int kMaxCand = 256;  // rows of a list staged at once (a chunk)
 constexpr int kVecPerRow = 4;  // 16 f32 lanes = 4 float4
 constexpr unsigned kFull = 0xffffffffu;
-static_assert(kThreads >= kMaxCand, "a thread fetches each row of a list");
+static_assert(kThreads >= kMaxCand, "a thread fetches each row of a chunk");
+static_assert(kMaxCand % kBatch == 0, "a chunk holds whole batches");
+
+// thread c fetches row c of a chunk of m rows into shared memory
+__device__ __forceinline__ void fetch_rows(float4* rows,
+                                           const float4* __restrict__ table,
+                                           int id, int m) {
+  if (static_cast<int>(threadIdx.x) < m) {
+#pragma unroll
+    for (int v = 0; v < kVecPerRow; ++v) {
+      cp_async16(rows + threadIdx.x * kVecPerRow + v,
+                 table + static_cast<size_t>(id) * kVecPerRow + v);
+    }
+  }
+  cp_async_commit();
+}
 
 // tested: null, or a count the (candidate, warp) tests run are added to
 __global__ void __launch_bounds__(kThreads)
@@ -115,24 +135,16 @@ raster_tile_kernel(const float4* __restrict__ table,
   const int x = x0 + lane % kWarpCols;
   const int y = y0 + lane / kWarpCols;
 
-  // the count and the list's ids are loaded side by side (slots past the
-  // count hold the sentinel row's id); rows are fetched only below the
-  // count, as every tile's padding names the same sentinel row (one
-  // address for every warp of the grid)
+  // the count and the first chunk's ids are loaded side by side (slots
+  // past the count hold the sentinel row's id); rows are fetched only
+  // below the count, as every tile's padding names the same sentinel row
+  // (one address for every warp of the grid)
   const int slots = min(n_slots, kMaxCand);
   const int* tile_cand = cand + static_cast<size_t>(b) * n_slots;
   const int count = __ldg(counts + b);
   const int id = threadIdx.x < slots ? __ldg(tile_cand + threadIdx.x) : 0;
-  const int n = min(count, slots);
-  // thread c fetches row c of the tile's list into shared memory
-  if (threadIdx.x < n) {
-#pragma unroll
-    for (int v = 0; v < kVecPerRow; ++v) {
-      cp_async16(rows + threadIdx.x * kVecPerRow + v,
-                 table + static_cast<size_t>(id) * kVecPerRow + v);
-    }
-  }
-  cp_async_commit();
+  const int n = min(count, n_slots);
+  fetch_rows(rows, table, id, min(n, kMaxCand));
 
   const float px = __fadd_rn(static_cast<float>(x), 0.5f);
   float py[kRowsPerThread];
@@ -153,22 +165,33 @@ raster_tile_kernel(const float4* __restrict__ table,
   const float pyh = __fadd_rn(
       __fadd_rn(static_cast<float>(y0 + kWarpRows - 1), 0.5f), y_offset);
 
-  cp_async_wait_all();
-  __syncthreads();  // the tile's list has landed
-
   unsigned long long tests = 0;
-  for (int cb = 0; cb < n; cb += kBatch) {
-    const float4* r = rows + cb * kVecPerRow;
-    const float lo = warp_min(invz);
-    const bool live =
-        cb + lane < n && may_pass(load_row(r, lane), pxl, pxh, pyl, pyh, lo);
-    unsigned mask = __ballot_sync(kFull, live);
-    tests += __popc(mask);
-    while (mask) {
-      const Row q = load_row(r, __ffs(mask) - 1);
-      mask &= mask - 1;
-      test_pixels(q, px, py, invz, idx, __float_as_int(q.q2.y));
+  for (int c0 = 0;;) {
+    cp_async_wait_all();
+    __syncthreads();  // the chunk has landed
+    const int m = min(n - c0, kMaxCand);
+    for (int cb = 0; cb < m; cb += kBatch) {
+      const float4* r = rows + cb * kVecPerRow;
+      const float lo = warp_min(invz);
+      const bool live = cb + lane < m &&
+                        may_pass(load_row(r, lane), pxl, pxh, pyl, pyh, lo);
+      unsigned mask = __ballot_sync(kFull, live);
+      tests += __popc(mask);
+      while (mask) {
+        const Row q = load_row(r, __ffs(mask) - 1);
+        mask &= mask - 1;
+        test_pixels(q, px, py, invz, idx, __float_as_int(q.q2.y));
+      }
     }
+    c0 += kMaxCand;
+    if (c0 >= n) break;  // the same for the whole CTA: one tile's count
+    __syncthreads();  // every warp is done with the chunk
+    const int next = min(n - c0, kMaxCand);
+    fetch_rows(rows, table,
+               static_cast<int>(threadIdx.x) < next
+                   ? __ldg(tile_cand + c0 + threadIdx.x)
+                   : 0,
+               next);
   }
   if (tested != nullptr && lane == 0 && tests != 0) atomicAdd(tested, tests);
 

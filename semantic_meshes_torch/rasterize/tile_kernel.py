@@ -24,6 +24,7 @@ import ctypes
 
 import torch
 
+from ..profiling import span
 from . import tiles
 
 TILE_H = tiles.TILE_H
@@ -45,6 +46,9 @@ WARPS = 32
 # kernel launches (a caller that counts sets it to 0 first); the plain
 # version never counts
 launches = 0
+# views whose setup and binning resolve_inputs made (span smt.tile_prep),
+# on any device
+views = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -178,10 +182,10 @@ def resolve_tiles_cuda(table, cand, counts, y_offset, nbx, height, width,
     B, N = cand.shape
     if table.ndim != 2 or table.shape[1] != N_LANES:
         raise ValueError(f"table must be (T+1, {N_LANES}), got {table.shape}")
-    if counts.shape != (B,) or B % nbx or N > 256:
+    if counts.shape != (B,) or B % nbx:
         raise ValueError(
             f"bad tile shapes: cand {tuple(cand.shape)}, counts "
-            f"{tuple(counts.shape)}, nbx {nbx} (at most 256 candidates)"
+            f"{tuple(counts.shape)}, nbx {nbx}"
         )
     if B // nbx < tiles._cdiv(height, TILE_H) or nbx < tiles._cdiv(
             width, TILE_W):
@@ -227,19 +231,24 @@ def resolve_inputs(vertices, faces, rotation, translation, focal_lengths,
                    principal_point, y_offset=0.0, face_vertices=None, *,
                    height, width, max_tris_per_tile=256, clip_near=False,
                    device="cuda"):
-    """Setup + binning of one view: (the argument tuple of resolve_tiles,
-    overflow int32 scalar tensor). With clip_near the rows are the 2T
-    clipped pieces and the resolve returns piece ids."""
-    setup = tiles.setup_inputs(
-        vertices, faces, rotation, translation, focal_lengths,
-        principal_point, face_vertices, device, clip_near,
-    )
-    y_offset = float(y_offset)
-    cand, counts, overflow = tiles._bin_triangles(
-        setup, height, width, max_tris_per_tile, y_offset
-    )
-    args = (candidate_table(setup), cand, counts, y_offset,
-            tiles._cdiv(width, TILE_W), height, width)
+    """Setup + binning of one view, the tile route's preparation (span
+    smt.tile_prep): (the argument tuple of resolve_tiles, overflow int32
+    scalar tensor). Tiles list at most max_tris_per_tile candidates, any
+    number (the kernel stages longer lists in chunks). With clip_near the
+    rows are the 2T clipped pieces and the resolve returns piece ids."""
+    global views
+    with span("smt.tile_prep"):
+        setup = tiles.setup_inputs(
+            vertices, faces, rotation, translation, focal_lengths,
+            principal_point, face_vertices, device, clip_near,
+        )
+        y_offset = float(y_offset)
+        cand, counts, overflow = tiles._bin_triangles(
+            setup, height, width, max_tris_per_tile, y_offset
+        )
+        args = (candidate_table(setup), cand, counts, y_offset,
+                tiles._cdiv(width, TILE_W), height, width)
+    views += 1
     return args, overflow
 
 

@@ -20,6 +20,8 @@ the lowest triangle id still wins a depth tie.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import geometry
@@ -219,6 +221,26 @@ def _tile_range(lo, hi, size, n):
     return tile(lo), tile(hi)
 
 
+def _tile_bounds(setup, height, width, y_offset):
+    """Each row's inclusive tile ranges (bx0, bx1, by0, by1) and whether it
+    is binned at all (valid and on screen); the tensors may carry leading
+    camera axes. `y_offset` shifts the screen window vertically (a row band
+    of a taller image)."""
+    nby = _cdiv(height, TILE_H)
+    nbx = _cdiv(width, TILE_W)
+    ymin = setup["ymin"] - y_offset
+    ymax = setup["ymax"] - y_offset
+    bx0, bx1 = _tile_range(setup["xmin"], setup["xmax"], TILE_W, nbx)
+    by0, by1 = _tile_range(ymin, ymax, TILE_H, nby)
+    onscreen = (
+        (setup["xmax"] >= 0)
+        & (setup["xmin"] < width)
+        & (ymax >= 0)
+        & (ymin < height)
+    )
+    return bx0, bx1, by0, by1, setup["valid"] & onscreen
+
+
 def _bin_triangles(setup, height, width, max_tris_per_tile, y_offset):
     """Build per-tile candidate triangle lists (static shapes).
 
@@ -231,18 +253,7 @@ def _bin_triangles(setup, height, width, max_tris_per_tile, y_offset):
     nby = _cdiv(height, TILE_H)
     nbx = _cdiv(width, TILE_W)
     device = setup["denom"].device
-
-    ymin = setup["ymin"] - y_offset
-    ymax = setup["ymax"] - y_offset
-    bx0, bx1 = _tile_range(setup["xmin"], setup["xmax"], TILE_W, nbx)
-    by0, by1 = _tile_range(ymin, ymax, TILE_H, nby)
-    onscreen = (
-        (setup["xmax"] >= 0)
-        & (setup["xmin"] < width)
-        & (ymax >= 0)
-        & (ymin < height)
-    )
-    valid = setup["valid"] & onscreen
+    bx0, bx1, by0, by1, valid = _tile_bounds(setup, height, width, y_offset)
 
     tile_y = torch.arange(nby, dtype=torch.int32, device=device)
     tile_x = torch.arange(nbx, dtype=torch.int32, device=device)
@@ -264,3 +275,62 @@ def _bin_triangles(setup, height, width, max_tris_per_tile, y_offset):
     return cand.to(torch.int32), torch.clamp(counts, max=n).to(
         torch.int32
     ), overflow
+
+
+def tile_counts(setup, height, width, y_offset=0.0):
+    """(..., B) int64 candidates of each tile, `_bin_triangles`' counts
+    before its cap, from a setup whose tensors may carry leading camera
+    axes (..., T). Each binned row adds one over its tile rectangle of a
+    (tiles_y + 1, tiles_x + 1) difference array, and two prefix sums give
+    the counts: no (tiles x rows) tensor."""
+    nby = _cdiv(height, TILE_H)
+    nbx = _cdiv(width, TILE_W)
+    bx0, bx1, by0, by1, valid = _tile_bounds(setup, height, width, y_offset)
+    # an empty range bins nowhere in _bin_triangles, and must add nothing
+    valid = valid & (bx0 <= bx1) & (by0 <= by1)
+    lead = valid.shape[:-1]
+    views = math.prod(lead)
+    stride = nbx + 1
+    cells = (nby + 1) * stride
+    x0, x1 = bx0.long(), bx1.long() + 1
+    y0, y1 = by0.long() * stride, (by1.long() + 1) * stride
+    corners = torch.stack([y0 + x0, y0 + x1, y1 + x0, y1 + x1], dim=-1)
+    base = torch.arange(views, device=valid.device) * cells
+    corners = corners.reshape(views, -1) + base[:, None]
+    sign = torch.tensor([1, -1, -1, 1], dtype=torch.int64,
+                        device=valid.device)
+    step = (valid.reshape(views, -1, 1).long() * sign).reshape(views, -1)
+    diff = torch.zeros(views * cells, dtype=torch.int64, device=valid.device)
+    diff.index_add_(0, corners.reshape(-1), step.reshape(-1))
+    counts = diff.view(views, nby + 1, stride).cumsum(1).cumsum(2)
+    return counts[:, :nby, :nbx].reshape(*lead, nby * nbx)
+
+
+# views whose tile counts max_tile_rows stacks at once
+PROBE_CHUNK = 64
+
+
+def max_tile_rows(face_vertices, rotations, translations, focal_lengths,
+                  principal_points, *, height, width, clip_near=False,
+                  device="cuda"):
+    """The largest tile list over a camera batch (leading axis), an int64
+    device scalar, no host sync: each view's setup as `setup_inputs` makes
+    it from the (T, 3, 3) face vertices, then `tile_counts` of PROBE_CHUNK
+    views at a time. It equals the largest `_bin_triangles` count before
+    the cap over the views."""
+    keys = ("xmin", "xmax", "ymin", "ymax", "valid")
+    device = resolve_device(device)
+    best = torch.zeros((), dtype=torch.int64, device=device)
+    chunk = []
+    n = len(rotations)
+    for i in range(n):
+        setup = setup_inputs(None, None, rotations[i], translations[i],
+                             focal_lengths[i], principal_points[i],
+                             face_vertices, device, clip_near)
+        chunk.append([setup[k] for k in keys])
+        if len(chunk) == PROBE_CHUNK or i == n - 1:
+            stacked = dict(zip(keys, map(torch.stack, zip(*chunk))))
+            best = torch.maximum(best, tile_counts(stacked, height,
+                                                   width).max())
+            chunk = []
+    return best

@@ -14,7 +14,10 @@ background, so empty pixels read 0xFFFFFFFF. Depth is f32 with +inf for
 background. Inside the port, ids travel as int32 with -1 for background.
 
 Meshes of DENSE_THRESHOLD faces or more go to the dense rasterizer, whose
-budgets the renderer probes once per resolution (`_DenseCapPolicy`). Texel
+budgets the renderer probes once per resolution (`_DenseCapPolicy`); the
+rest go to the tile rasterizer, whose per-tile list `prepare` sizes from a
+probe of every camera (`tile_caps`; the JAX package keeps its fixed
+max_tris_per_tile, which a renderer never prepared keeps too). Texel
 mode rasterizes whole triangles the same way and turns each pixel's
 triangle id into a texel id with `_texel_prim_image`.
 
@@ -53,7 +56,7 @@ from . import rasterize as rast
 from .data import (Camera, Colmap, Ply, resolve_device, stack_cameras,
                    stack_distortions)
 from .fusion import _as_f32
-from .profiling import annotate, span
+from .profiling import annotate, counter_max, span
 from .rasterize.dense import _to_i32
 
 logger = logging.getLogger("semantic_meshes_torch")
@@ -267,7 +270,9 @@ class TrianglesRenderer:
     then count the 2T piece rows. bucket: pad the vertices, then the
     faces, up to their `_face_bucket` (None reads SM_FACE_BUCKETS); the
     backend and the budgets then follow the padded face count, while
-    getPrimitivesNum() stays the real one.
+    getPrimitivesNum() stays the real one. max_tris_per_tile: the tile
+    route's per-tile list length, which `prepare` raises per resolution
+    to what its cameras need (`tile_caps`).
     """
 
     def __init__(self, mesh: Ply, max_tris_per_tile: int = 256,
@@ -297,9 +302,35 @@ class TrianglesRenderer:
         self.route = dict(route or {})
         self.overflow_policy = _OverflowPolicy()
         self.dense_cap_policy = _DenseCapPolicy()
+        self.tile_caps = {}  # (H, W) -> the tile route's list length
 
     def getPrimitivesNum(self) -> int:
         return self._num_faces
+
+    def _tile_cap(self, key):
+        """The tile route's per-tile list length at key = (H, W)."""
+        return self.tile_caps.get(key, self.max_tris_per_tile)
+
+    def _size_tile_lists(self, height, width, rot, trans, fl, pp,
+                         dist=None):
+        """Grow the tile route's list length at (height, width) to the
+        largest tile list over the cameras (a batch), rounded up to a
+        multiple of 32, and at least max_tris_per_tile; one host sync. A
+        no-op for the dense backend. dist as in _dense_e_cap. The profiling
+        counters `tiles.max_tile_rows` and `tiles.cap` record both."""
+        if rast.uses_dense(self.backend, int(self.faces.shape[0])):
+            return
+        rot, trans, fl, pp = _batch(rot, trans, fl, pp)
+        fl_v = _virtual_focals(fl, pp, dist, height=height, width=width,
+                               device=self.device)
+        rows = int(rast.tiles.max_tile_rows(
+            self.face_vertices, rot, trans, fl_v, pp, height=height,
+            width=width, clip_near=self.clip_near, device=self.device))
+        key = (height, width)
+        cap = max(self._tile_cap(key), -(-rows // 32) * 32)
+        self.tile_caps[key] = cap
+        counter_max("tiles.max_tile_rows", rows)
+        counter_max("tiles.cap", cap)
 
     def _dense_e_cap(self, height, width, rot, trans, fl, pp, dist=None):
         """The dense budget (a dense.DenseBudget) for (height, width),
@@ -340,7 +371,7 @@ class TrianglesRenderer:
             self.vertices, self.faces, *arrays,
             face_vertices=self.face_vertices, backend=self.backend,
             height=height, width=width,
-            max_tris_per_tile=self.max_tris_per_tile,
+            max_tris_per_tile=self._tile_cap((height, width)),
             clip_near=self.clip_near, dense_e_cap=dense_e_cap,
             device=self.device,
         )
@@ -355,7 +386,7 @@ class TrianglesRenderer:
         the probe invalidates the cached cap, so the next render re-probes
         with a grow-only budget."""
         new = self.overflow_policy.check(
-            overflow, key, self.max_tris_per_tile,
+            overflow, key, self._tile_cap(key),
             dense=(dense_e_cap is not None),
             recheck=(dense_e_cap is not None),
             hot=dense_e_cap is not None and dense_e_cap.zero,
@@ -407,19 +438,20 @@ class TrianglesRenderer:
         return self.overflow_policy.total()
 
     def prepare(self, cameras):
-        """Pre-size the dense budgets for a whole camera set: one probe of
-        the max over all cameras per resolution (under the virtual focals
-        of distorted cameras), so later renders never breach. A no-op for
-        the tile backend."""
+        """Pre-size the rasterizer for a whole camera set: one probe of the
+        max over all cameras per resolution (under the virtual focals of
+        distorted cameras), so later renders never breach: the dense
+        budgets, or the tile route's per-tile list length."""
         by_hw = {}
         for c in cameras:
             by_hw.setdefault(_camera_hw(c), []).append(c)
         with annotate("smt.setup.budgets"):
             for (height, width), group in by_hw.items():
-                self._dense_e_cap(
-                    height, width, *stack_cameras(group),
-                    dist=stack_distortions(group)
-                    if _has_distortion(group) else None)
+                arrays = stack_cameras(group)
+                dist = (stack_distortions(group) if _has_distortion(group)
+                        else None)
+                self._dense_e_cap(height, width, *arrays, dist=dist)
+                self._size_tile_lists(height, width, *arrays, dist=dist)
 
 
 def _texel_resolutions(vertices, faces, cameras, texels_per_pixel,
@@ -747,7 +779,7 @@ def _virtual_focals(fl, pp, dist, *, height, width, device):
     """The focals (N, 2) a camera batch rasterizes with: fl itself, or,
     when any lens of dist ((N, 4|9), or one lens for every view) is
     nonzero, fl * s as f32 numpy, s each view's virtual-pinhole scale
-    (_distortion_scales). The dense budget probes run under them."""
+    (_distortion_scales). The set-up probes run under them."""
     if dist is None or not np.any(_host(dist)):
         return fl
     fl_t, pp_t, d = (_as_f32(a, device) for a in (fl, pp, dist))
