@@ -14,7 +14,10 @@ each phase prints a line and raises on failure:
    started together, those of --against too) and their -Xptxas -v
    register / shared-memory reports;
 3. every kernel against its plain PyTorch version on the card: raster_tile
-   on every view of `default` and `large` and on the hand-binned scenes of
+   on every view of `default` and `large` (each view's preparation by the
+   tile_prep kernels first held to the plain chain, tile_kernel.
+   resolve_inputs_plain, bit for bit: table, lists, counts, overflow; 2
+   launches) and on the hand-binned scenes of
    testing.TILE_SCENES, raster_dense on every view of
    `scannet` (twice, bit-identical) and of `default` forced through the
    dense rasterizer (ids equal, depths bit-equal, overflow 0), at the
@@ -120,7 +123,11 @@ each phase prints a line and raises on failure:
    replays) against the culled setup; the dense preparation at `scannet`
    per view (dense_prep kernels and sort, launched and in graph replays,
    the plain chain launched) against the bound of the bytes it moves;
-   fusion of one view (fusion_kernel: the fusion kernels and the sort) at
+   the tile preparation at the `scannet-simplified` cell's shapes
+   (tile_prep kernels == the plain chain on 8 ring views, then per view
+   launched, in graph replays, the kernels alone under the profiler and
+   the plain chain launched, against the bound of its bytes); fusion of
+   one view (fusion_kernel: the fusion kernels and the sort) at
    the benchmark's `scannet-eval`, `cityscapes-demo` and `scannet-room`
    shapes, on 8 rendered views each: == the plain chain
    (fusion._segment_sums_plain) on every view (rows inside one chunk of
@@ -432,6 +439,37 @@ def view_inputs(fv, cam, device, clip_near=False):
                                       device=device, **cam_kw(cam))
 
 
+def tile_view_pair(where, k, fv, cam, device, clip_near=False,
+                   max_tris_per_tile=256):
+    """The tile route's preparation of one view by the tile_prep kernels
+    (tile_kernel.resolve_inputs: 2 launches) held to the plain chain
+    (resolve_inputs_plain) on the same card inputs bit for bit: table,
+    lists, counts and overflow. Returns the kernels' resolve_tiles
+    arguments."""
+    from semantic_meshes_torch.rasterize import tile_kernel, tile_prep
+
+    kw = dict(face_vertices=fv, clip_near=clip_near, device=device,
+              max_tris_per_tile=max_tris_per_tile, **cam_kw(cam))
+    launches = tile_prep.launches
+    args, ov = tile_kernel.resolve_inputs(None, None, *cam_args(cam), **kw)
+    launches = tile_prep.launches - launches
+    want, ov_want = tile_kernel.resolve_inputs_plain(None, None,
+                                                     *cam_args(cam), **kw)
+    faults = [] if launches == 2 else [f"{launches} tile_prep launches"]
+    for name, a, b in zip(("table", "cand", "counts"), args, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            faults.append(f"{name} {a.dtype} {tuple(a.shape)} != "
+                          f"{b.dtype} {tuple(b.shape)}")
+        elif not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            faults.append(f"{name} differs")
+    if int(ov) != int(ov_want):
+        faults.append(f"overflow {int(ov)} != {int(ov_want)}")
+    if faults:
+        raise AssertionError(f"{where} view {k}: the tile_prep kernels != "
+                             f"the plain chain: {'; '.join(faults)}")
+    return args
+
+
 def dense_budget(vertices, faces, cams, device, backend=None,
                  clip_near=False):
     """The dense budget (a DenseBudget) the renderer probes for this
@@ -611,14 +649,15 @@ def tile_vs_plain(device):
         vertices, faces, cams = scene(name)
         fv = face_vertices(vertices, faces, device)
         for k, cam in enumerate(cams):
-            args, _ = view_inputs(fv, cam, device)
+            args = tile_view_pair(name, k, fv, cam, device)
             zk, ik = tile_kernel.resolve_tiles_cuda(*args)
             zp, ip = tile_kernel.resolve_tiles_plain(*args)
             torch.cuda.synchronize()
             max_err = max(max_err, assert_same_image(name, k, zk, ik, zp,
                                                      ip))
-        phase(f"phase 3: raster_tile == plain at {name}: {len(cams)} views, "
-              "ids equal, depths bit-equal")
+        phase(f"phase 3: tile_prep == plain chain (table, lists, counts, "
+              f"overflow) and raster_tile == plain at {name}: {len(cams)} "
+              "views, ids equal, depths bit-equal")
     for name in testing.TILE_SCENES:
         args = testing.tile_resolve_scene(name, device)
         zk, ik = tile_kernel.resolve_tiles_cuda(*args)
@@ -703,10 +742,10 @@ def dense_vs_plain(device):
     return max_err
 
 
-# windows of read_launches where a dense view was prepared off the
-# dense_prep kernels' route or with other than their launches, or a view
-# fused or texel-shaded on the card off the fusion or texel kernels'
-# route; main (and each sharded rank) raises at its end if any
+# windows of read_launches where a dense or tile view was prepared off
+# the dense_prep or tile_prep kernels' route or with other than their
+# launches, or a view fused or texel-shaded on the card off the fusion or
+# texel kernels' route; main (and each sharded rank) raises at its end if any
 PREP_FAULTS = []
 
 # views given to fusion._accumulate_view on the card since reset_launches
@@ -716,6 +755,10 @@ FUSED = {"views": 0}
 # views given to render._texel_prim_image on the card since
 # reset_launches (count_shaded's wrapper counts them)
 SHADED = {"views": 0}
+
+# views given to tile_kernel.resolve_inputs on the card since
+# reset_launches (count_tiled's wrapper counts them)
+TILED = {"views": 0}
 
 
 def count_fused():
@@ -760,14 +803,40 @@ def count_shaded():
     render._texel_prim_image = texel_prim_image
 
 
+def count_tiled():
+    """Wrap tile_kernel.resolve_inputs, once a process, so that every view
+    it prepares on the card counts in TILED. tile_kernel.rasterize (every
+    tile-route render, fuse and sharded fuse) calls it through the module,
+    so the count is the tile views the window prepared on the card."""
+    from semantic_meshes_torch.data import resolve_device
+    from semantic_meshes_torch.rasterize import tile_kernel
+
+    inner = tile_kernel.resolve_inputs
+    if getattr(inner, "counts_tiled", False):
+        return
+
+    def resolve_inputs(*args, **kwargs):
+        # the device is keyword-only there, "cuda" by default
+        if resolve_device(kwargs.get("device", "cuda")).type == "cuda":
+            TILED["views"] += 1
+        return inner(*args, **kwargs)
+
+    resolve_inputs.counts_tiled = True
+    tile_kernel.resolve_inputs = resolve_inputs
+
+
 def reset_launches():
     from semantic_meshes_torch import fusion_kernel, texel_kernel
     from semantic_meshes_torch.rasterize import (dense_kernel, dense_prep,
-                                                 tile_kernel)
+                                                 tile_kernel, tile_prep)
 
     count_fused()
     count_shaded()
+    count_tiled()
     tile_kernel.launches = 0
+    tile_prep.launches = 0
+    tile_prep.views = 0
+    TILED["views"] = 0
     dense_kernel.launches = 0
     dense_prep.launches = 0
     dense_prep.views = 0
@@ -787,8 +856,13 @@ def read_launches():
     raster_dense's; that the fusion kernels fused every view the window
     fused on the card (FUSED), 3 launches a view; and that the texel
     kernels shaded every view the window shaded on the card (SHADED), 2
-    launches a view. A window that breaks any goes to PREP_FAULTS."""
-    from semantic_meshes_torch.rasterize import dense_kernel, tile_kernel
+    launches a view; and that the tile_prep kernels prepared every tile
+    view the window prepared on the card (TILED), 2 launches a view. A
+    window that breaks any goes to PREP_FAULTS. Returns the launches of
+    kernel A (raster_tile), kernel B (raster_dense) and the tile_prep
+    kernels."""
+    from semantic_meshes_torch.rasterize import (dense_kernel, tile_kernel,
+                                                 tile_prep)
 
     prep = read_prep()
     if prep["launches"] != 2 * prep["views"] + dense_kernel.launches:
@@ -809,8 +883,14 @@ def read_launches():
             f"{shaded['launches']} texel kernel launches for "
             f"{shaded['views']} views, of {SHADED['views']} views shaded on "
             "the card")
+    if (tile_prep.views != TILED["views"]
+            or tile_prep.launches != 2 * tile_prep.views):
+        PREP_FAULTS.append(
+            f"{tile_prep.launches} tile_prep launches for {tile_prep.views} "
+            f"views, of {TILED['views']} tile views prepared on the card")
     return {"raster_tile": tile_kernel.launches,
-            "raster_dense": dense_kernel.launches}
+            "raster_dense": dense_kernel.launches,
+            "tile_prep": tile_prep.launches}
 
 
 def read_prep():
@@ -871,9 +951,10 @@ def check_prep(label, prep, budgets):
 
 def raise_prep_faults():
     if PREP_FAULTS:
-        raise AssertionError("views prepared off the dense_prep kernels' "
-                             "route, fused off the fusion kernels' or "
-                             "shaded off the texel kernels': "
+        raise AssertionError("views prepared off the dense_prep or "
+                             "tile_prep kernels' route, fused off the "
+                             "fusion kernels' or shaded off the texel "
+                             "kernels': "
                              + " | ".join(PREP_FAULTS))
 
 
@@ -991,12 +1072,9 @@ def main_path(name, device, workdir):
     check_fusion(name, fused, 5 * n_views)
 
     kernel = "raster_dense" if dense else "raster_tile"
-    other = "raster_tile" if dense else "raster_dense"
     expect = sum(1 for c in rasterized
                  if not dense or (c is not None and c.pairs > 0))
-    if launches[kernel] != expect or launches[other] != 0:
-        raise AssertionError(f"{name}: launches {launches} for {expect} "
-                             f"views rasterized with pairs")
+    expect_launches(name, launches, kernel, expect)
     if not torch.allclose(acc, fused_sum, rtol=1e-6, atol=0.0):
         err = float((acc - fused_sum).abs().max())
         raise AssertionError(f"{name}: planned != per-view (max |err| {err})")
@@ -1014,7 +1092,8 @@ def main_path(name, device, workdir):
     return dict(vertices=vertices, faces=faces, cams=cams, probs=probs,
                 plan=plan, rot=rot, trans=trans, fl=fl, pp=pp, cap=cap,
                 launches=launches[kernel], prep_launches=prep["launches"],
-                fusion_launches=fused["launches"])
+                fusion_launches=fused["launches"],
+                tile_prep_launches=launches["tile_prep"])
 
 
 def dense_preset(device):
@@ -1198,9 +1277,7 @@ def texel_main_path(name, device, workdir):
     if not torch.equal(runs[0], runs[1]):
         raise AssertionError(f"{name}: repeated fusion is not bit-identical")
     expect = sum(1 for c in rasterized if c is not None and c.pairs > 0)
-    if launches["raster_dense"] != expect or launches["raster_tile"] != 0:
-        raise AssertionError(f"{name}: launches {launches} for {expect} "
-                             "views rasterized with pairs")
+    expect_launches(name, launches, "raster_dense", expect)
     if not torch.allclose(runs[0], fused_sum, rtol=1e-6, atol=0.0):
         err = float((runs[0] - fused_sum).abs().max())
         raise AssertionError(f"{name}: planned != per-view (max |err| {err})")
@@ -1272,7 +1349,8 @@ def texel_tile_check(device):
     overflow = renderer.overflow_total()
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"raster_tile": len(cams), "raster_dense": 0}:
+    if launches != {"raster_tile": len(cams), "raster_dense": 0,
+                    "tile_prep": 2 * len(cams)}:
         raise AssertionError(f"default texels: launches {launches}")
     if overflow != 0 or int(ids.max()) >= P or not (ids >= 0).any():
         raise AssertionError(f"default texels: overflow {overflow}, ids up "
@@ -1294,10 +1372,16 @@ def with_lenses(cams, lenses):
 
 
 def expect_launches(name, launches, kernel, expect):
+    """Raises unless `kernel` launched `expect` times and the other
+    z-resolve not at all; each kernel A launch follows the tile_prep
+    kernels' 2 for its view."""
     other = "raster_tile" if kernel == "raster_dense" else "raster_dense"
-    if launches[kernel] != expect or launches[other] != 0:
+    prep = 2 * expect if kernel == "raster_tile" else 0
+    if (launches[kernel] != expect or launches[other] != 0
+            or launches["tile_prep"] != prep):
         raise AssertionError(f"{name}: launches {launches}, expected "
-                             f"{expect} of {kernel} and none of {other}")
+                             f"{expect} of {kernel}, none of {other} and "
+                             f"{prep} of tile_prep")
 
 
 def per_view_sum(P, classes, rendered, probs, device):
@@ -2515,6 +2599,91 @@ def dense_prep_row(ctx, device, card):
                 bound_ms=bound_ms, bound_by="bytes", bytes=nbytes)
 
 
+# the tile preparation's row: the `scannet-simplified.triangles` cell's
+# shapes (the cube at s = 29, 10092 faces bucketed to 10240 rows, its ring
+# at ScanNet's frame and intrinsics, the list length its probe gives)
+TILE_PREP_VIEWS = 8
+TILE_PREP_CAP = 448
+
+
+def tile_prep_row(device, card):
+    """The tile preparation on TILE_PREP_VIEWS views of the simplified
+    cell's ring (tile_kernel.resolve_inputs on the card: the two tile_prep
+    kernels), each held to the plain chain bit for bit, then per view: ms
+    from CUDA-graph replays, launched_ms as launched from Python view by
+    view, the plain chain's time launched (plain_ms), the kernels' device
+    time alone under the profiler (kernel_ms), and the bound of the bytes
+    it has to move: each row's 36 bytes read and its 64-byte table row and
+    8-byte rectangle written, the sentinel row, N ids and a count a tile.
+    Prints one line; returns the numbers."""
+    from types import SimpleNamespace
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantic_meshes_torch import render, testing
+    from semantic_meshes_torch.data import Camera
+    from semantic_meshes_torch.rasterize import tile_kernel
+
+    width, height, focal = 1296, 968, 1170.187988
+    v, f = testing.make_cube(29)
+    fv = render.triangles(SimpleNamespace(vertices=v, faces=f), bucket=True,
+                          device=device).face_vertices
+    cams = [Camera(c.rotation, c.translation, (width, height),
+                   [focal, focal], (647.75, 483.75))
+            for c in testing.make_ring_cameras(TILE_PREP_VIEWS, width,
+                                               height, radius=2.0,
+                                               elevation=0.35, focal=focal)]
+    n = len(cams)
+    for k, cam in enumerate(cams):
+        tile_view_pair("tile_prep row", k, fv, cam, device,
+                       max_tris_per_tile=TILE_PREP_CAP)
+    kw = dict(face_vertices=fv, device=device,
+              max_tris_per_tile=TILE_PREP_CAP, **cam_kw(cams[0]))
+
+    def prepare():
+        return [tile_kernel.resolve_inputs(None, None, *cam_args(c), **kw)
+                for c in cams]
+
+    def plain():
+        return [tile_kernel.resolve_inputs_plain(None, None, *cam_args(c),
+                                                 **kw)
+                for c in cams]
+
+    launched_ms = cuda_time_ms(prepare, reps=20) / n
+    ms = graph_time_ms(prepare, reps=20) / n
+    plain_ms = cuda_time_ms(plain, reps=5) / n
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prepare()
+        torch.cuda.synchronize()
+    kernel_us = {name: 0.0 for name in ("tile_setup_kernel",
+                                        "tile_bins_kernel")}
+    for e in prof.key_averages():
+        for name in kernel_us:
+            if name in e.key:
+                kernel_us[name] += e.device_time_total
+    kernel_ms = sum(kernel_us.values()) / 1e3 / n
+    rows = fv.shape[0]
+    tiles = -(-height // 32) * -(-width // 128)
+    nbytes = (rows * 36 + (rows + 1) * 64 + rows * 8
+              + tiles * (min(TILE_PREP_CAP, rows) + 1) * 4 + 4)
+    bound_ms = nbytes / PEAK_BYTES_S * 1e3
+    phase(
+        f"phase 5 [{card}]: tile_prep at scannet-simplified ({n} views "
+        f"{width}x{height}, {rows} rows, {tiles} tiles, cap {TILE_PREP_CAP}; "
+        "== plain chain on every view), per view: "
+        f"{ms:.6f} ms (graph replays), {launched_ms:.6f} ms launched view by "
+        f"view, kernels {kernel_ms:.6f} ms under the profiler "
+        f"({ {k: round(u / 1e3 / n, 6) for k, u in kernel_us.items()} }); "
+        f"the plain chain {plain_ms:.6f} ms launched; bytes bound "
+        f"{bound_ms:.6f} ms for {nbytes} bytes at {PEAK_BYTES_S / 1e12} "
+        "TB/s; 2 launches a view"
+    )
+    return dict(ms=ms, launched_ms=launched_ms, plain_ms=plain_ms,
+                kernel_ms=kernel_ms, bound_ms=bound_ms, bound_by="bytes",
+                bytes=nbytes)
+
+
 # fusion row: the benchmark's configurations whose scenes it renders
 # (benchmark/configs/<name>.json; "scannet-room" looks at the floor and
 # walls from inside the room, every pixel covered), and views a shape
@@ -3313,10 +3482,8 @@ def scannet_eval(device, card):
         shutil.rmtree(workdir, ignore_errors=True)
     launches = read_launches()
     fused = read_fusion()
-    expect = renders if cap.pairs > 0 else 0
-    if launches["raster_dense"] != expect or launches["raster_tile"] != 0:
-        raise AssertionError(f"scannet eval: launches {launches} for "
-                             f"{expect} views rasterized with pairs")
+    expect_launches("scannet eval", launches, "raster_dense",
+                    renders if cap.pairs > 0 else 0)
     if fused["views"] == 0:
         raise AssertionError("scannet eval: no view fused by the fusion "
                              "kernels")
@@ -3848,7 +4015,8 @@ def multi_card(card, n):
         for r in range(n):
             with open(os.path.join(out_dir, f"rank{r}.json")) as fh:
                 ranks.append(json.load(fh))
-    by_path = {"raster_tile": {}, "raster_dense": {}, "fusion": {}}
+    by_path = {"raster_tile": {}, "raster_dense": {}, "fusion": {},
+               "tile_prep": {}}
     for i, entry in enumerate(ranks[0]["cases"]):
         each = [rk["cases"][i] for rk in ranks]
         bad = [e for e in each if not (e["ok"] and e["bit_identical"])]
@@ -3929,7 +4097,7 @@ def multi_gpu(device, card):
     one = "scannet sharded, NCCL world of one (1, 1)"
     dense_launches, fusion_launches = world_of_one(device)
     by_path = {"raster_tile": {}, "raster_dense": {one: dense_launches},
-               "fusion": {one: fusion_launches}}
+               "fusion": {one: fusion_launches}, "tile_prep": {}}
     n = torch.cuda.device_count()
     if n >= 2:
         for kernel, paths in multi_card(card, n).items():
@@ -4227,7 +4395,7 @@ def e2e_preset(device, card, workdir):
     acc, overflow = run_batch()
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"raster_tile": 0, "raster_dense": n}:
+    if launches != {"raster_tile": 0, "raster_dense": n, "tile_prep": 0}:
         raise AssertionError(f"e2e: launches {launches}, expected "
                              f"raster_dense once a view")
     if int(overflow) != 0:
@@ -4348,7 +4516,8 @@ def rgbd_scannet(device, card):
     acc, overflow = batch()
     torch.cuda.synchronize()
     launches = read_launches()
-    if launches != {"raster_tile": 0, "raster_dense": n_views}:
+    if launches != {"raster_tile": 0, "raster_dense": n_views,
+                    "tile_prep": 0}:
         raise AssertionError(f"scannet RGBD: launches {launches}")
     if int(overflow) != 0:
         raise AssertionError(f"scannet RGBD: overflow {int(overflow)}")
@@ -4855,7 +5024,7 @@ def trained_fusion_scene(device, card):
     """tests/test_trained_fusion.py's scene at its own size on the card
     (cube s=3, 6 views of 128x96, RGBDUNet(8, 16, 32), 60 steps at lr
     3e-3, mul), frames in memory: fused mIoU >= network mIoU, raster_tile
-    twice a frame. Returns raster_tile's launches."""
+    twice a frame. Returns the window's launches (read_launches)."""
     import semantic_meshes_torch as smt
     from semantic_meshes_torch import eval_scannet
     from semantic_meshes_torch.models.training import SegmentationTrainer
@@ -4909,7 +5078,7 @@ def trained_fusion_scene(device, card):
           f"raster_tile == plain on its {checked} views at the eval's "
           f"bucketed rows (ids equal, depths bit-equal); network mIoU "
           f"{net:.6f}, fused {fused:.6f}")
-    return launches["raster_tile"]
+    return launches
 
 
 def training_phase(device, card):
@@ -4922,7 +5091,8 @@ def training_phase(device, card):
     tile = trained_fusion_scene(device, card)
     phase(f"phase 9 took {time.monotonic() - t9:.1f} s")
     return {"raster_dense": {"scannet eval entry (trained RGBD)": dense},
-            "raster_tile": {"trained fusion scene": tile}}
+            **{kernel: {"trained fusion scene": tile[kernel]}
+               for kernel in ("raster_tile", "tile_prep")}}
 
 
 # ------------------------------------------------------------------ phase 10
@@ -5055,7 +5225,8 @@ def cityscapes_demo(device, root, failures):
         check(failures, result["overflow"] == 0,
               f"demo chunk {chunk}: overflow {result['overflow']}")
         check(failures, launches == {"raster_tile": 0,
-                                     "raster_dense": CITY["views"]},
+                                     "raster_dense": CITY["views"],
+                                     "tile_prep": 0},
               f"demo chunk {chunk}: launches {launches}")
         # the chunked run also fuses the all-zero views padding its tail
         check(failures, fused["views"] >= CITY["views"],
@@ -5269,7 +5440,8 @@ def annotations_leg(device, root, failures):
         wall = time.monotonic() - t
         by_path[label] = launches["raster_dense"]
         check(failures, launches == {"raster_tile": 0,
-                                     "raster_dense": 2 * len(cams)},
+                                     "raster_dense": 2 * len(cams),
+                                     "tile_prep": 0},
               f"{label}: launches {launches}")
         fused = torch.from_numpy(np.load(npz)["fused"]).to(device)
         r = render.texels(mesh, cams, 0.1, device=device) if extra \
@@ -5335,7 +5507,7 @@ def tile_scripts_leg(device, workdir, failures):
     from semantic_meshes_torch.scripts import bench_cityscapes as bench
     from semantic_meshes_torch.scripts import colorize_mesh, demo_cube
 
-    by_path = {}
+    by_path = {"raster_tile": {}, "tile_prep": {}}
     dirs = {d: os.path.join(workdir, f"demo_cube_{d}")
             for d in ("cuda", "cpu")}
     t = time.monotonic()
@@ -5343,10 +5515,12 @@ def tile_scripts_leg(device, workdir, failures):
                                            "--device", "cuda"])
     card_s = time.monotonic() - t
     demo_cube.main(["--out", dirs["cpu"], "--device", "cpu"])
-    by_path["demo_cube"] = launches["raster_tile"]
+    for kernel in by_path:
+        by_path[kernel]["demo_cube"] = launches[kernel]
     defaults = demo_cube.parse_args([])
     check(failures, launches == {"raster_tile": 2 * defaults.views,
-                                 "raster_dense": 0},
+                                 "raster_dense": 0,
+                                 "tile_prep": 4 * defaults.views},
           f"demo_cube: launches {launches}")
     n = same_files(failures, "demo_cube", dirs["cuda"], dirs["cpu"])
     card_vs_cpu_ids(failures, "demo_cube",
@@ -5397,8 +5571,10 @@ def tile_scripts_leg(device, workdir, failures):
         phase(f"phase 10: colorize_mesh --remap on the {d} "
               f"({len(faces)} triangles, {views} views of {width}x{height}):"
               f" {time.monotonic() - t:.1f} s")
-    by_path["colorize_mesh"] = launches["raster_tile"]
-    check(failures, launches == {"raster_tile": views, "raster_dense": 0},
+    for kernel in by_path:
+        by_path[kernel]["colorize_mesh"] = launches[kernel]
+    check(failures, launches == {"raster_tile": views, "raster_dense": 0,
+                                 "tile_prep": 2 * views},
           f"colorize_mesh: launches {launches}")
     with open(plys["cuda"], "rb") as f, open(plys["cpu"], "rb") as g:
         check(failures, f.read() == g.read(),
@@ -5447,7 +5623,7 @@ def scripts_phase(device, card):
         raise AssertionError(f"phase 10: {len(failures)} gates failed: "
                              + "; ".join(failures))
     phase(f"phase 10 took {time.monotonic() - t10:.1f} s")
-    return {"raster_dense": dense, "raster_tile": tile, "fusion": fused}, err
+    return {"raster_dense": dense, **tile, "fusion": fused}, err
 
 
 # ------------------------------------------------------------------ phase 11
@@ -5531,8 +5707,8 @@ def bench_records(lines, failures):
 
 def graft_check(card):
     """graft_entry.entry() on the card == the same fn on the CPU, and the
-    dry run in an NCCL world of one. Returns raster_tile's launches of
-    the card's fn."""
+    dry run in an NCCL world of one. Returns the launches of the card's
+    fn."""
     from semantic_meshes_torch import graft_entry
 
     fn, args = graft_entry.entry()
@@ -5544,14 +5720,14 @@ def graft_check(card):
         raise AssertionError(
             f"graft entry: card {tuple(out.shape)} != CPU (max |err| "
             f"{float((out.cpu() - ref).abs().max())})")
-    if launches != {"raster_tile": 2, "raster_dense": 0}:
+    if launches != {"raster_tile": 2, "raster_dense": 0, "tile_prep": 4}:
         raise AssertionError(f"graft entry: launches {launches}")
     phase(f"phase 11 [{card}]: graft_entry.entry() on the card == on the "
           f"CPU (rtol {graft_entry.RTOL}, atol {graft_entry.ATOL}; max |err| "
           f"{float((out.cpu() - ref).abs().max()):.3e}), (300, 19), "
           f"launches {launches}")
     graft_dryrun(card, 1)
-    return launches["raster_tile"]
+    return launches
 
 
 def graft_dryrun(card, n):
@@ -5570,7 +5746,7 @@ def microbenches(card):
     launches per kernel (the timing loops' included)."""
     from semantic_meshes_torch.scripts.microbench_segment_sum import PROBES
 
-    paths = {"raster_tile": {}, "raster_dense": {}}
+    paths = {"raster_tile": {}, "raster_dense": {}, "tile_prep": {}}
     runs = [(m, []) for m in MICROBENCHES] + [
         ("microbench_segment_sum", ["--probe", p]) for p in PROBES]
     for module, argv in runs:
@@ -5604,7 +5780,7 @@ def bench_phase(device, card, phase5, e2e_ms):
             d = lines[0]["detail"]
             records[args[1]] = (lines[0]["value"], d.get(
                 "seconds_per_batch"), d["overflow"], d["launches"])
-    paths = {"raster_tile": {}, "raster_dense": {}}
+    paths = {"raster_tile": {}, "raster_dense": {}, "tile_prep": {}}
     for preset, (value, spb, overflow, launches) in records.items():
         want = bench_launches(preset)
         check(failures, overflow == 0, f"bench {preset}: overflow "
@@ -5630,7 +5806,9 @@ def bench_phase(device, card, phase5, e2e_ms):
     if not phase5:
         phase("phase 11: phases 5 and 8 did not run in this call: no "
               "ratios against them")
-    paths["raster_tile"]["graft entry"] = graft_check(card)
+    graft = graft_check(card)
+    for kernel in ("raster_tile", "tile_prep"):
+        paths[kernel]["graft entry"] = graft[kernel]
     for kernel, more in microbenches(card).items():
         paths[kernel].update(more)
     if failures:
@@ -5678,7 +5856,8 @@ def same_renders(name, got, want):
 def bucketed_small(device, card):
     """The 108-face cube (s=3) on `default`'s views, padded to 1024 rows:
     raster_tile once a view, == the unbucketed renders, == plain on the
-    padded rows. Returns (raster_tile launches, the kernel's error)."""
+    padded rows. Returns (the render window's launches, the kernel's
+    error)."""
     import semantic_meshes_torch as smt
     from semantic_meshes_torch.rasterize import tile_kernel
 
@@ -5707,7 +5886,7 @@ def bucketed_small(device, card):
           f"{cams[0].resolution[0]}x{cams[0].resolution[1]}): raster_tile "
           f"{launches['raster_tile']} launches, == unbucketed (ids equal, "
           "depths bit-equal), == plain on the padded rows")
-    return launches["raster_tile"], err
+    return launches, err
 
 
 def bucketed_scannet(device, card):
@@ -5775,8 +5954,8 @@ def bucketed_scannet(device, card):
           f"bucketed against unbucketed dense: {ms}")
     return ({"raster_dense": {"s=35 bucketed at scannet":
                               launches["raster_dense"]},
-             "raster_tile": {"s=35 unbucketed at scannet":
-                             tile_launches["raster_tile"]}}, err)
+             **{kernel: {"s=35 unbucketed at scannet": tile_launches[kernel]}
+                for kernel in ("raster_tile", "tile_prep")}}, err)
 
 
 def render_turns(padded, plain, cams, rounds=4):
@@ -5926,17 +6105,19 @@ def bucketed_eval_cli(device, card):
           f"{off['overflow']}, {moved} of {faces} face colours differ")
     return {"raster_dense": {"eval CLI defaults, s=35":
                              launches["raster_dense"]},
-            "raster_tile": {"eval CLI --no_face_buckets, s=35":
-                            off_launches["raster_tile"]}}
+            **{kernel: {"eval CLI --no_face_buckets, s=35":
+                        off_launches[kernel]}
+               for kernel in ("raster_tile", "tile_prep")}}
 
 
 def bucketing_phase(device, card):
     """Phase 12. Returns (launches_by_path additions per kernel, the
     largest kernel vs plain error of each kernel)."""
     t12 = time.monotonic()
-    paths = {"raster_tile": {}, "raster_dense": {}}
-    n, tile_err = bucketed_small(device, card)
-    paths["raster_tile"]["cube s=3 bucketed at default"] = n
+    paths = {"raster_tile": {}, "raster_dense": {}, "tile_prep": {}}
+    small, tile_err = bucketed_small(device, card)
+    for kernel in ("raster_tile", "tile_prep"):
+        paths[kernel]["cube s=3 bucketed at default"] = small[kernel]
     more, dense_err = bucketed_scannet(device, card)
     for kernel, p in more.items():
         paths[kernel].update(p)
@@ -6072,6 +6253,7 @@ def main():
     tile_row = tile_times("large", device, card, against)
     dense_row = dense_times(scannet, device, card, against)
     prep_row = dense_prep_row(scannet, device, card)
+    tile_prep = tile_prep_row(device, card)
     fusion_rows = fusion_row(device, card)
     dense_kernel_row("default forced dense",
                      [v[0] for v in dense_inputs("default", device,
@@ -6083,6 +6265,8 @@ def main():
     by_path = {
         "raster_tile": {"large": large["launches"],
                         "default texels": default_texels["raster_tile"]},
+        "tile_prep": {"large": large["tile_prep_launches"],
+                      "default texels": default_texels["tile_prep"]},
         "raster_dense": {"scannet": scannet["launches"],
                          "dense": dense_ctx["launches"]["raster_dense"]},
         "dense_prep": {"scannet": scannet["prep_launches"],
@@ -6097,15 +6281,17 @@ def main():
         by_path["fusion"][name] = ctx["fusion_launches"]
     by_path["raster_dense"]["scannet + SIMPLE_RADIAL"] = \
         scannet_lens["launches"]["raster_dense"]
-    by_path["raster_tile"]["large + lenses"] = \
-        large_lens["launches"]["raster_tile"]
-    by_path["raster_tile"]["default texels + lenses"] = \
-        texel_lens["tile"]["launches"]["raster_tile"]
+    for kernel in ("raster_tile", "tile_prep"):
+        by_path[kernel]["large + lenses"] = large_lens["launches"][kernel]
+        by_path[kernel]["default texels + lenses"] = \
+            texel_lens["tile"]["launches"][kernel]
     by_path["raster_dense"]["default texels + lenses, forced dense"] = \
         texel_lens["dense"]["launches"]["raster_dense"]
     for name, ctx in indoor.items():
-        kernel = "raster_tile" if name == "large" else "raster_dense"
-        by_path[kernel][f"{name} indoor + clip"] = ctx["launches"][kernel]
+        kernels = (("raster_tile", "tile_prep") if name == "large"
+                   else ("raster_dense",))
+        for kernel in kernels:
+            by_path[kernel][f"{name} indoor + clip"] = ctx["launches"][kernel]
     by_path["dense_prep"]["scannet indoor + clip"] = \
         indoor["scannet"]["prep_launches"]
     by_path["raster_dense"]["scannet indoor + clip + SIMPLE_RADIAL"] = \
@@ -6209,6 +6395,20 @@ def main():
         # the plain chain (dense_view_pair)
         "max_abs_err": 0.0,
         **prep_row,
+        "library_ms": None,
+    }, {
+        "name": "tile_prep",
+        "route": "cuda",
+        "source": "semantic_meshes_torch/csrc/tile_prep.cu",
+        # XLA ops there (setup, the tile overlap and its top-k), no TPU
+        # kernel
+        "replaces": "semantic_meshes/rasterize/xla.py",
+        "launches": by_path["tile_prep"]["large"],
+        "launches_by_path": by_path["tile_prep"],
+        # table, lists, counts and overflow bit-equal to the plain chain
+        # (tile_view_pair)
+        "max_abs_err": 0.0,
+        **tile_prep,
         "library_ms": None,
     }, {
         "name": "fusion",

@@ -4,7 +4,8 @@ Each `csrc/<name>.cu` is compiled by nvcc for sm_90a into a shared library with
 a plain C interface, `build/torch_kernels/lib<name>-<hash>.so` at the root
 of the checkout, the first time it is needed, together with the further
 sources SOURCES names for it (`raster_dense` also holds the dense
-preparation of `csrc/dense_prep.cu`, so the dense route runs one build);
+preparation of `csrc/dense_prep.cu`, and `raster_tile` the tile
+preparation of `csrc/tile_prep.cu`, so each route runs one build);
 the hash covers the sources, the shared headers `csrc/*.cuh` and the
 flags, so an edited source or header rebuilds. nvcc's output (with the
 -Xptxas -v register and shared-memory report) is kept beside it as `.log`.
@@ -35,7 +36,8 @@ NVCC_FLAGS = (
 )
 
 # every source of a library, where it is more than csrc/<name>.cu
-SOURCES = {"raster_dense": ("raster_dense.cu", "dense_prep.cu")}
+SOURCES = {"raster_dense": ("raster_dense.cu", "dense_prep.cu"),
+           "raster_tile": ("raster_tile.cu", "tile_prep.cu")}
 
 CXX_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-pthread", "-Wall", "-shared")
 CXX_LIBS = ("-lz",)

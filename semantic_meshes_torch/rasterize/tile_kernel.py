@@ -24,8 +24,9 @@ import ctypes
 
 import torch
 
+from ..data import resolve_device
 from ..profiling import span
-from . import tiles
+from . import tile_prep, tiles
 
 TILE_H = tiles.TILE_H
 TILE_W = tiles.TILE_W
@@ -47,7 +48,7 @@ WARPS = 32
 # version never counts
 launches = 0
 # views whose setup and binning resolve_inputs made (span smt.tile_prep),
-# on any device
+# on any device (on the card also counted by tile_prep.views)
 views = 0
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -235,20 +236,65 @@ def resolve_inputs(vertices, faces, rotation, translation, focal_lengths,
     smt.tile_prep): (the argument tuple of resolve_tiles, overflow int32
     scalar tensor). Tiles list at most max_tris_per_tile candidates, any
     number (the kernel stages longer lists in chunks). With clip_near the
-    rows are the 2T clipped pieces and the resolve returns piece ids."""
+    rows are the 2T clipped pieces and the resolve returns piece ids.
+
+    On a CUDA device the hand-written kernels of `tile_prep` compute it in
+    two launches with no host sync; on the CPU the plain chain
+    `resolve_inputs_plain` does. The two are bit-identical on the card."""
     global views
     with span("smt.tile_prep"):
-        setup = tiles.setup_inputs(
-            vertices, faces, rotation, translation, focal_lengths,
-            principal_point, face_vertices, device, clip_near,
-        )
-        y_offset = float(y_offset)
-        cand, counts, overflow = tiles._bin_triangles(
-            setup, height, width, max_tris_per_tile, y_offset
-        )
-        args = (candidate_table(setup), cand, counts, y_offset,
-                tiles._cdiv(width, TILE_W), height, width)
+        device = resolve_device(device)
+        if device.type == "cpu":
+            out = resolve_inputs_plain(
+                vertices, faces, rotation, translation, focal_lengths,
+                principal_point, y_offset, face_vertices, height=height,
+                width=width, max_tris_per_tile=max_tris_per_tile,
+                clip_near=clip_near, device=device)
+        elif device.type == "cuda":
+            if face_vertices is not None:
+                face_vertices = torch.as_tensor(
+                    face_vertices, dtype=torch.float32,
+                    device=device).contiguous()
+            else:
+                vertices = torch.as_tensor(vertices, dtype=torch.float32,
+                                           device=device).contiguous()
+                faces = torch.as_tensor(faces, device=device)
+                if faces.dtype not in (torch.int32, torch.int64):
+                    faces = faces.long()
+                faces = faces.contiguous()
+            y_offset = float(y_offset)
+            table, cand, counts, overflow = tile_prep.prepare(
+                face_vertices, vertices, faces,
+                (rotation, translation, focal_lengths, principal_point),
+                height=height, width=width, y_offset=y_offset,
+                max_tris_per_tile=max_tris_per_tile, clip_near=clip_near)
+            out = ((table, cand, counts, y_offset,
+                    tiles._cdiv(width, TILE_W), height, width), overflow)
+        else:
+            raise ValueError(f"no tile preparation for device {device}")
     views += 1
+    return out
+
+
+def resolve_inputs_plain(vertices, faces, rotation, translation,
+                         focal_lengths, principal_point, y_offset=0.0,
+                         face_vertices=None, *, height, width,
+                         max_tris_per_tile=256, clip_near=False,
+                         device="cuda"):
+    """resolve_inputs as a chain of PyTorch ops on any device: the CPU
+    implementation, and on the card the oracle of the tile_prep kernels
+    (~197 launches a view at the ScanNet eval's frame, and a host sync for
+    each camera upload there)."""
+    setup = tiles.setup_inputs(
+        vertices, faces, rotation, translation, focal_lengths,
+        principal_point, face_vertices, device, clip_near,
+    )
+    y_offset = float(y_offset)
+    cand, counts, overflow = tiles._bin_triangles(
+        setup, height, width, max_tris_per_tile, y_offset
+    )
+    args = (candidate_table(setup), cand, counts, y_offset,
+            tiles._cdiv(width, TILE_W), height, width)
     return args, overflow
 
 

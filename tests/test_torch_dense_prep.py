@@ -91,7 +91,7 @@ def test_dense_prep_source_is_part_of_the_raster_dense_library(
     assert [p.name for p in _build.sources("raster_dense")] == [
         "raster_dense.cu", "dense_prep.cu"]
     assert [p.name for p in _build.sources("raster_tile")] == [
-        "raster_tile.cu"]
+        "raster_tile.cu", "tile_prep.cu"]
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC, csrc)
     monkeypatch.setattr(_build, "CSRC", csrc)

@@ -126,6 +126,9 @@ def test_card_ids_equal_the_cpu_chain(cuda, clip_near):
     v, f = testing.make_cube(20, where["size"])
     r_cpu = render.texels(SimpleNamespace(vertices=v, faces=f), cams, 1.5,
                           clip_near=clip_near, device="cpu")
+    # sized by the same probe as the card's renderer (`_scene` prepares
+    # it), so that neither drops candidates the other keeps
+    r_cpu.prepare(cams)
     for cam, tri in zip(cams, ids):
         got = _shade(cuda, vertices, faces, _arrays(cam), tri, res, first, P,
                      clip_near=clip_near)
